@@ -1,0 +1,529 @@
+"""Shared-matrix batched Mehrotra IPM: one A, many LP lanes.
+
+The port of sypha_tpu/ipm/shared.py on the dense operator.  The whole batch
+of B&B nodes / replicas shares ONE constraint matrix A on the device; lanes
+differ only in
+
+  * ``col_mask`` [B, n]: 0 where a variable is fixed by branching (or pad),
+  * ``b`` [B, m]: rhs after substituting fixed-to-1 columns,
+  * ``c`` [B, n]: costs (masked columns get cost 1, the pad convention),
+  * ``obj_offset`` [B]: sum of costs of fixed-to-1 columns.
+
+Branch decisions x_j = 0 / x_j = 1 are therefore column masks and rhs shifts,
+and every A-product in the solver is one GEMM shared across lanes.  Masked
+columns follow the pad-column convention of core.problem.PaddedLp.
+
+Per IPM iteration the dense-factor strategy forms the f32 normal matrix with
+the Gram kernel (ops.gram), factors it (ops.linalg), and solves the
+predictor and corrector Newton systems with f64 flexible PCG preconditioned
+by that factor (ops.spd).  The loop runs eagerly: the test that any lane is
+still RUNNING is one device-to-host sync per iteration, as the test in the
+PCG is one per CG step.
+
+The iterate (``IpmState``, from sypha_tpu/ipm/dense.py) and every f64
+quantity stay float64; only the Gram matrix, its factor and the
+preconditioner apply are float32.  The padded-ELL operator
+(``make_shared_batch_sparse`` / ``_auto``) and the tensor-parallel
+``axis_name`` of the JAX package are not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+
+import torch
+
+from sypha_tpu_torch.config import IpmOptions
+from sypha_tpu_torch.core.problem import PaddedLp
+from sypha_tpu_torch.core.status import IpmStatus
+from sypha_tpu_torch.ops.gram import gram
+from sypha_tpu_torch.ops.linalg import block_chol_inverse
+from sypha_tpu_torch.ops.spd import pcg_solve
+
+_ELL_TODO = (
+    "the padded-ELL sparse operator is not ported yet (ROADMAP queue 1 item 4); "
+    "use make_shared_batch on a dense PaddedLp"
+)
+
+
+@dataclass(frozen=True)
+class IpmState:
+    """Iterate of the batched IPM; every field has a leading lane axis [B]."""
+
+    x: torch.Tensor  # [B, n_pad] f64 primal
+    y: torch.Tensor  # [B, m_pad] f64 dual
+    s: torch.Tensor  # [B, n_pad] f64 dual slacks
+    mu: torch.Tensor  # [B] f64 duality measure x.s / n_pad
+    gap: torch.Tensor  # [B] f64 relative duality gap
+    res_p: torch.Tensor  # [B] f64 relative primal infeasibility
+    res_d: torch.Tensor  # [B] f64 relative dual infeasibility
+    iterations: torch.Tensor  # [B] int32
+    status: torch.Tensor  # [B] int32 IpmStatus
+    best_gap: torch.Tensor  # [B] f64 best gap seen (stagnation monitor)
+    stall_count: torch.Tensor  # [B] int32 iterations without gap improvement
+
+
+def _factor_params(opts: IpmOptions):
+    dtype = torch.float32 if opts.factor_dtype == "float32" else torch.float64
+    ridge = opts.factor_ridge
+    if ridge is None:
+        ridge = 2e-6 if dtype == torch.float32 else 1e-12
+    return dtype, ridge
+
+
+@dataclass(frozen=True)
+class SharedLpBatch:
+    """B standard-form LP lanes min c.x, A(mask)x = b, x >= 0 sharing one A.
+
+    A: [m, n] f64 (shared); b: [B, m]; c: [B, n]; col_mask: [B, n] in {0,1};
+    row_pad: [m] (1 on pad rows); obj_offset: [B].  All f64, one device.
+    """
+
+    A: torch.Tensor
+    b: torch.Tensor
+    c: torch.Tensor
+    col_mask: torch.Tensor
+    row_pad: torch.Tensor
+    obj_offset: torch.Tensor
+
+    @property
+    def m_pad(self) -> int:
+        return self.A.shape[-2]
+
+    @property
+    def n_pad(self) -> int:
+        return self.A.shape[-1]
+
+    @property
+    def n_lanes(self) -> int:
+        return self.b.shape[-2] if self.b.ndim >= 2 else 1
+
+
+def _A_products(A: torch.Tensor):
+    """(Av, ATu, sqAv) for a dense [m, n] A:
+    Av: [..., n] -> [..., m] = A @ v;  ATu: [..., m] -> [..., n] = A^T @ u;
+    sqAv: [..., n] -> [..., m] = (A∘A) @ d (the Jacobi-diagonal product)."""
+    A2 = A * A
+    return (
+        lambda v: v @ A.T,
+        lambda u: u @ A,
+        lambda d: d @ A2.T,
+    )
+
+
+def make_shared_batch(lp: PaddedLp, n_lanes: int) -> SharedLpBatch:
+    """Replicate a single PaddedLp into a SharedLpBatch of ``n_lanes``."""
+    if not isinstance(lp.A, torch.Tensor):
+        raise NotImplementedError(_ELL_TODO)
+    if lp.A.ndim != 2:
+        raise ValueError("make_shared_batch expects an unbatched PaddedLp")
+    B = n_lanes
+    n = lp.n_pad
+    col = torch.arange(n, device=lp.c.device)
+    mask = (col < lp.n_real).to(lp.c.dtype).expand(B, n).contiguous()
+    return SharedLpBatch(
+        A=lp.A,
+        b=lp.b.expand(B, lp.m_pad).contiguous(),
+        c=lp.c.expand(B, n).contiguous(),
+        col_mask=mask,
+        row_pad=lp.row_pad,
+        obj_offset=torch.zeros((B,), dtype=lp.A.dtype, device=lp.A.device),
+    )
+
+
+def make_shared_batch_sparse(model, n_lanes, m_pad=None, n_pad=None) -> SharedLpBatch:
+    """Padded-ELL counterpart of make_shared_batch (not ported yet)."""
+    raise NotImplementedError(_ELL_TODO)
+
+
+def make_shared_batch_auto(
+    model, n_lanes, m_pad=None, n_pad=None, density_threshold=0.05
+) -> SharedLpBatch:
+    """Operator selection by density between dense and padded ELL (not ported yet)."""
+    raise NotImplementedError(_ELL_TODO)
+
+
+def fix_columns(batch: SharedLpBatch, fix0, fix1) -> SharedLpBatch:
+    """Apply per-lane branch fixings.
+
+    fix0/fix1: [B, n] {0,1} float masks (tensors or numpy) of variables fixed
+    to 0 / 1.  Fixing to 1 substitutes the column out: b -= A_j,
+    offset += c_j.
+    """
+    Av, _, _ = _A_products(batch.A)
+    c0 = batch.c
+    fix0 = torch.as_tensor(fix0, dtype=c0.dtype, device=c0.device)
+    fix1 = torch.as_tensor(fix1, dtype=c0.dtype, device=c0.device)
+    fixed = torch.clamp(fix0 + fix1, 0.0, 1.0)
+    mask = batch.col_mask * (1.0 - fixed)
+    b = batch.b - Av(fix1)
+    c = torch.where(mask > 0, c0, 1.0)
+    offset = batch.obj_offset + torch.sum(fix1 * c0, dim=-1)
+    return SharedLpBatch(
+        A=batch.A, b=b, c=c, col_mask=mask, row_pad=batch.row_pad,
+        obj_offset=offset,
+    )
+
+
+# ---------------------------------------------------------------------------
+# solver internals: every A-product is a shared GEMM over the lane axis
+# ---------------------------------------------------------------------------
+
+
+def _shared_factor(A32, d2_eff, row_reg, ft, ridge: float, leaf_size: int):
+    """Factor of M_b = A diag(d2_eff_b) A^T + diag(row_reg_b), batched.
+
+    Returns (Linv, dinv): the inverse Cholesky factor of the Jacobi-
+    equilibrated M (plus ridge) and the equilibration scales, both in ``ft``.
+    In f32 the Gram matrix comes from the Gram kernel (``gram``), which
+    applies w = sqrt(d2_eff) to A while loading it.
+    """
+    w = torch.sqrt(d2_eff).to(ft)
+    if ft == torch.float32:
+        M = gram(A32, w.contiguous())
+    else:
+        Aw = A32[None, :, :] * w[:, None, :]
+        M = torch.einsum("bik,bjk->bij", Aw, Aw)
+    m = M.shape[-1]
+    M = M + torch.diag_embed(row_reg.to(ft))
+    diag = torch.diagonal(M, dim1=-2, dim2=-1)
+    dinv = torch.rsqrt(torch.clamp(diag, min=1e-30))
+    Ms = M * dinv[:, None, :] * dinv[:, :, None]
+    Ms = Ms + ridge * torch.eye(m, dtype=ft, device=M.device)
+    Linv = block_chol_inverse(Ms, leaf_size=leaf_size)
+    return Linv, dinv
+
+
+def _precond(Linv, dinv, r):
+    """P r = Dg L^-T L^-1 Dg r per lane (batched GEMVs in the factor dtype)."""
+    rf = dinv * r.to(dinv.dtype)
+    z = torch.einsum("bij,bj->bi", Linv, rf)
+    z = torch.einsum("bji,bj->bi", Linv, z)
+    return (dinv * z).to(r.dtype)
+
+
+def _pcg(Linv, dinv, matvec, f, tol, max_steps: int):
+    """Flexible PCG preconditioned by the f32 Cholesky factor (ops.spd)."""
+    return pcg_solve(lambda r: _precond(Linv, dinv, r), matvec, f, tol, max_steps)
+
+
+def use_cg_strategy(opts: IpmOptions, m_pad: int) -> bool:
+    """Resolve the linear-solver strategy: "auto" takes matrix-free CG above
+    2048 rows, where the O(B m^2) factor footprint grows too large."""
+    if opts.linear_solver == "cg":
+        return True
+    if opts.linear_solver == "auto":
+        return m_pad > 2048
+    return False
+
+
+def shared_initial_point(batch: SharedLpBatch, opts: IpmOptions, A32, use_cg: bool):
+    """Mehrotra initial point, batched over lanes of the shared matrix."""
+    A, b, c, mask = batch.A, batch.b, batch.c, batch.col_mask
+    Av, ATu, sqAv = _A_products(A)
+    ft, ridge = _factor_params(opts)
+    row_reg = batch.row_pad.expand(b.shape)
+
+    def matvec(v):
+        return Av(mask * ATu(v)) + batch.row_pad * v
+
+    if use_cg:
+        diag = sqAv(mask) + row_reg
+
+        def solve(f):
+            return pcg_solve(
+                lambda r: r / torch.clamp(diag, min=1e-300),
+                matvec, f, 1e-12, opts.cg_max_iter,
+            )[0]
+    else:
+        Linv, dinv = _shared_factor(A32, mask, row_reg, ft, ridge, opts.chol_leaf_size)
+
+        def solve(f):
+            return _pcg(Linv, dinv, matvec, f, 1e-12, opts.newton_max_steps)[0]
+
+    vy = solve(b)
+    x = mask * ATu(vy)
+    Ac = Av(mask * c)
+    y = solve(Ac)
+    s = c - mask * ATu(y)
+
+    delta_x = torch.clamp(-1.5 * torch.amin(x, dim=-1, keepdim=True), min=0.0)
+    delta_s = torch.clamp(-1.5 * torch.amin(s, dim=-1, keepdim=True), min=0.0)
+    x_hat = x + delta_x
+    s_hat = s + delta_s
+    p = torch.sum(x_hat * s_hat, dim=-1, keepdim=True)
+    x = x_hat + 0.5 * p / torch.sum(s_hat, dim=-1, keepdim=True)
+    s = s_hat + 0.5 * p / torch.sum(x_hat, dim=-1, keepdim=True)
+    return x, y, s
+
+
+def _alpha_max_batch(v, dv):
+    """Per-lane max alpha in [0,1] with v + alpha dv >= 0 (masked min-reduce)."""
+    neg = dv < 0.0
+    ratios = torch.where(neg, -v / torch.where(neg, dv, -1.0), float("inf"))
+    return torch.clamp(torch.amin(ratios, dim=-1), max=1.0)
+
+
+def mehrotra_solve_shared(
+    batch: SharedLpBatch,
+    opts: IpmOptions,
+    x0=None,
+    y0=None,
+    s0=None,
+    state0: IpmState | None = None,
+    iter_limit=None,
+) -> IpmState:
+    """Batched Mehrotra predictor-corrector over a SharedLpBatch.
+
+    Returns an IpmState whose fields carry a leading lane axis.  Lanes that
+    terminate freeze while the rest continue (per-lane status gating): every
+    iteration steps every lane and keeps the old iterate where a lane is no
+    longer RUNNING, exactly as the JAX ``lax.while_loop`` does.
+
+    ``iter_limit`` caps the per-lane iteration count (default
+    ``opts.max_iter``).  A caller can run a solve in chunks: solve with a
+    small limit, check the wall clock, then resume by passing the returned
+    state back as ``state0`` with a higher limit.  Lanes that stopped at
+    MAX_ITER are revived when the new limit allows more steps; all other
+    terminal statuses stay frozen.
+    """
+    A, b, c, mask = batch.A, batch.b, batch.c, batch.col_mask
+    Av, ATu, sqAv = _A_products(A)
+    B, n_pad = c.shape[-2], c.shape[-1]
+    dev = c.device
+    ft, ridge = _factor_params(opts)
+    use_cg = use_cg_strategy(opts, batch.m_pad)
+    A32 = None if use_cg else A.to(ft).contiguous()
+    row_reg = batch.row_pad.expand(b.shape)
+    RUNNING = int(IpmStatus.RUNNING)
+
+    norm_b = 1.0 + torch.linalg.vector_norm(b, dim=-1)
+    norm_c = 1.0 + torch.sqrt(torch.sum(c * c, dim=-1))
+
+    iter_limit = opts.max_iter if iter_limit is None else int(iter_limit)
+
+    if state0 is not None:
+        # resume a chunked solve: revive lanes the previous (lower) limit
+        # cut short; every other terminal status is final
+        revive = (state0.status == IpmStatus.MAX_ITER) & (state0.iterations < iter_limit)
+        state0 = dataclasses.replace(
+            state0,
+            status=torch.where(revive, RUNNING, state0.status).to(torch.int32),
+        )
+    else:
+        if x0 is None:
+            x, y, s = shared_initial_point(batch, opts, A32, use_cg)
+        else:
+            x, y, s = x0, y0, s0
+
+        one = torch.ones((B,), dtype=c.dtype, device=dev)
+        state0 = IpmState(
+            x=x,
+            y=y,
+            s=s,
+            mu=torch.sum(x * s, dim=-1) / n_pad,
+            gap=one,
+            res_p=one,
+            res_d=one,
+            iterations=torch.zeros((B,), dtype=torch.int32, device=dev),
+            status=torch.full((B,), RUNNING, dtype=torch.int32, device=dev),
+            best_gap=torch.full((B,), float("inf"), dtype=c.dtype, device=dev),
+            stall_count=torch.zeros((B,), dtype=torch.int32, device=dev),
+        )
+
+    def one_step(st: IpmState, Linv_c, dinv_c) -> IpmState:
+        """One predictor-corrector step.  ``Linv_c/dinv_c`` is the (possibly
+        stale) f32 preconditioner factor: with factor_refresh_every > 1 the
+        loop body factors once and runs several steps against it; None
+        factors inline."""
+        x, y, s = st.x, st.y, st.s
+
+        r_b = Av(mask * x) - b
+        r_c = mask * ATu(y) + s - c
+        mu = torch.sum(x * s, dim=-1) / n_pad
+
+        pobj = torch.sum(c * x, dim=-1)
+        dobj = torch.sum(b * y, dim=-1)
+        gap = torch.abs(pobj - dobj) / (1.0 + torch.abs(pobj))
+        res_p = torch.linalg.vector_norm(r_b, dim=-1) / norm_b
+        res_d = torch.sqrt(torch.sum(r_c * r_c, dim=-1)) / norm_c
+
+        feasible = (res_p < opts.tol_feas) & (res_d < opts.tol_feas)
+        tiny_mu = mu < opts.mu_tol_hard
+        converged = feasible & ((gap < opts.tol_gap) | tiny_mu)
+        # mu -> 0 with a stubborn primal residual = infeasible lane (a node
+        # whose fixings make the cover impossible)
+        infeasible = tiny_mu & (res_p > max(1e3 * opts.tol_feas, 1e-3))
+        diverged = ~torch.isfinite(mu) | (mu > opts.mu_max) | infeasible
+        hit_max = st.iterations >= iter_limit
+
+        improved = gap < st.best_gap * (1.0 - opts.gap_stall_min_improv)
+        best_gap = torch.where(improved, gap, st.best_gap)
+        stall_count = torch.where(improved, 0, st.stall_count + 1).to(torch.int32)
+        if opts.gap_stall_window > 0:
+            stalled = stall_count >= opts.gap_stall_window
+        else:
+            stalled = torch.zeros((B,), dtype=torch.bool, device=dev)
+
+        d2 = torch.clamp(x / s, opts.d2_min, opts.d2_max)
+        d2_eff = d2 * mask
+
+        def matvec(v):
+            return Av(d2_eff * ATu(v)) + batch.row_pad * v
+
+        if use_cg:
+            # Jacobi-CG with the adaptive tolerance schedule per IPM iteration
+            diag = sqAv(d2_eff) + row_reg
+            cg_tol = torch.clamp(
+                opts.cg_tol_initial
+                * opts.cg_tol_decay ** st.iterations.to(c.dtype),
+                min=opts.cg_tol_final,
+            )[:, None]
+
+            def solve(f):
+                return pcg_solve(
+                    lambda r: r / torch.clamp(diag, min=1e-300),
+                    matvec, f, cg_tol, opts.cg_max_iter,
+                )
+
+            solve_gate = torch.clamp(100.0 * cg_tol[:, 0], min=1e-3)
+        else:
+            if Linv_c is None:
+                Linv_c, dinv_c = _shared_factor(
+                    A32, d2_eff, row_reg, ft, ridge, opts.chol_leaf_size
+                )
+
+            def solve(f):
+                return _pcg(
+                    Linv_c, dinv_c, matvec, f, opts.newton_tol, opts.newton_max_steps
+                )
+
+            solve_gate = 1e-3
+
+        # 1e-30 floor (not 1e-300): sigma*mu/s with s ~ 1e-300 overflows to
+        # inf in the Newton rhs and NaNs the step
+        s_safe = torch.clamp(s, min=1e-30)
+
+        def newton(r_xs):
+            vec1 = r_xs / s_safe
+            f = Av(mask * (vec1 - d2 * r_c)) - r_b
+            dy, solve_rel = solve(f)
+            ds = -r_c - mask * ATu(dy)
+            dx = -vec1 - d2 * ds
+            return dx, dy, ds, solve_rel
+
+        r_xs = x * s
+        dxa, dya, dsa, rel_a = newton(r_xs)
+        a_p = _alpha_max_batch(x, dxa)[:, None]
+        a_d = _alpha_max_batch(s, dsa)[:, None]
+        mu_aff = torch.sum((x + a_p * dxa) * (s + a_d * dsa), dim=-1) / n_pad
+        sigma = (mu_aff / mu) ** opts.sigma_pow
+
+        dx, dy, ds, rel_c = newton(r_xs + dxa * dsa - (sigma * mu)[:, None])
+
+        # Gondzio multiple centrality correctors: push complementarity
+        # products toward [beta_min, beta_max] * sigma*mu with extra solves
+        # on the same factor; accept a correction only if it lengthens the step
+        mu_t = (sigma * mu)[:, None]
+        for _ in range(opts.max_correctors):
+            ap = _alpha_max_batch(x, dx)
+            ad = _alpha_max_batch(s, ds)
+            ap_t = torch.clamp(ap * 1.08 + 0.08, max=1.0)[:, None]
+            ad_t = torch.clamp(ad * 1.08 + 0.08, max=1.0)[:, None]
+            v = (x + ap_t * dx) * (s + ad_t * ds)
+            target = torch.clamp(
+                v, opts.corrector_beta_min * mu_t, opts.corrector_beta_max * mu_t
+            )
+            t = v - target  # residual to remove (0 inside the window)
+            vec1 = t / s_safe
+            fcc = Av(mask * vec1)
+            dyc, _ = solve(fcc)
+            dsc = -(mask * ATu(dyc))
+            dxc = -vec1 - d2 * dsc
+            ap2 = _alpha_max_batch(x, dx + dxc)
+            ad2 = _alpha_max_batch(s, ds + dsc)
+            better = ((ap2 >= ap + 0.01) & (ad2 >= ad)) | (
+                (ad2 >= ad + 0.01) & (ap2 >= ap)
+            )
+            sel_c = better[:, None]
+            dx = torch.where(sel_c, dx + dxc, dx)
+            dy = torch.where(sel_c, dy + dyc, dy)
+            ds = torch.where(sel_c, ds + dsc, ds)
+
+        if opts.adaptive_eta:
+            eta = torch.clamp(1.0 - mu, min=opts.eta)
+        else:
+            eta = torch.full_like(mu, opts.eta)
+        alpha_p = torch.clamp(eta * _alpha_max_batch(x, dx), max=1.0)[:, None]
+        alpha_d = torch.clamp(eta * _alpha_max_batch(s, ds), max=1.0)[:, None]
+
+        x_new = x + alpha_p * dx
+        y_new = y + alpha_d * dy
+        s_new = s + alpha_d * ds
+
+        step_ok = (
+            torch.all(torch.isfinite(x_new), dim=-1)
+            & torch.all(torch.isfinite(s_new), dim=-1)
+            & torch.all(torch.isfinite(y_new), dim=-1)
+        )
+        # linear-solve quality gates: a Newton system the PCG could not solve
+        # to within ~100x of its tolerance gives a garbage direction; also
+        # accept the step only if it does not blow up primal feasibility.  A
+        # rejected step ends the lane at its current iterate as GAP_STALLED.
+        res_p_new = torch.linalg.vector_norm(Av(mask * x_new) - b, dim=-1) / norm_b
+        step_bad = res_p_new > torch.clamp(10.0 * res_p, min=1e-4)
+        solve_failed = (torch.maximum(rel_a, rel_c) > solve_gate) | step_bad
+
+        # a non-finite step ends the lane at its current iterate as
+        # GAP_STALLED: numerical exhaustion, not infeasibility
+        new_status = torch.where(
+            converged,
+            int(IpmStatus.CONVERGED),
+            torch.where(
+                diverged,
+                int(IpmStatus.INFEASIBLE_OR_NUMERICAL),
+                torch.where(
+                    hit_max,
+                    int(IpmStatus.MAX_ITER),
+                    torch.where(
+                        stalled | solve_failed | ~step_ok,
+                        int(IpmStatus.GAP_STALLED),
+                        RUNNING,
+                    ),
+                ),
+            ),
+        ).to(torch.int32)
+        # lanes already terminated keep their status and iterate no further
+        final = st.status != RUNNING
+        new_status = torch.where(final, st.status, new_status)
+        stepped = new_status == RUNNING
+        sel = stepped[:, None]
+
+        return IpmState(
+            x=torch.where(sel, x_new, x),
+            y=torch.where(sel, y_new, y),
+            s=torch.where(sel, s_new, s),
+            mu=torch.where(final, st.mu, mu),
+            gap=torch.where(final, st.gap, gap),
+            res_p=torch.where(final, st.res_p, res_p),
+            res_d=torch.where(final, st.res_d, res_d),
+            iterations=st.iterations + stepped.to(torch.int32),
+            status=new_status,
+            best_gap=best_gap,
+            stall_count=stall_count,
+        )
+
+    st = state0
+    while bool((st.status == RUNNING).any()):
+        if use_cg or opts.factor_refresh_every <= 1:
+            Linv = dinv = None  # one_step factors inline (or needs none)
+        else:
+            d2_eff0 = torch.clamp(st.x / st.s, opts.d2_min, opts.d2_max) * mask
+            Linv, dinv = _shared_factor(
+                A32, d2_eff0, row_reg, ft, ridge, opts.chol_leaf_size
+            )
+        for _ in range(max(1, opts.factor_refresh_every)):
+            st = one_step(st, Linv, dinv)
+    return st
+
