@@ -9,7 +9,8 @@ checkout.  Phases, each printed as it runs:
   1. device: card name and power limit, precision flags, build of the Gram
      kernel from sypha_tpu_torch/csrc/gram.cu;
   2. kernel: the Gram kernel against its plain PyTorch version and an f64
-     Gram at three shapes, with CUDA-event times of both;
+     Gram at four shapes (the last with w over the IPM's full clamp range),
+     per entry against |Aw| |Aw|^T, for bit symmetry, with CUDA-event times;
   3. slice A: 128 lanes of a seeded scp4x-class LP (200 x 1000, 2%) through
      the reader, pad_lp, make_shared_batch and mehrotra_solve_shared, checked
      against HiGHS, then again with the plain Gram for comparison;
@@ -19,8 +20,9 @@ checkout.  Phases, each printed as it runs:
 
 Any failed check raises, and the script exits non-zero; without a CUDA card
 it exits non-zero before doing anything.  The last line is the JSON status
-object; the line before it lists each kernel with its launch count in the
-slices, its error against the plain version and both times.
+object and the line before it the card's name and power limit; the line
+before that lists each kernel with its launch count in the slices, its error
+against the plain version and both times.
 """
 
 from __future__ import annotations
@@ -60,6 +62,14 @@ def time_ms(torch, fn, reps: int = 20) -> float:
     return statistics.median(times)
 
 
+def entry_rel_err(M, G64, bound) -> float:
+    """max_ij |M - G64|_ij / bound_ij; entries with a zero bound must be exact."""
+    err = (M.double() - G64).abs()
+    pos = bound > 0
+    check(bool((err[~pos] == 0).all()), "gram entries with a zero bound are exact")
+    return (err[pos] / bound[pos]).max().item()
+
+
 def highs_objective(model, fix0=None, fix1=None):
     """LP optimum of the SCP relaxation with optional fixings (None if infeasible)."""
     import numpy as np
@@ -79,6 +89,63 @@ def highs_objective(model, fix0=None, fix1=None):
         return None
     check(res.status == 0, f"HiGHS status {res.status}: {res.message}")
     return float(res.fun)
+
+
+def kernel_phase(torch, gram_mod, dev, card):
+    """Phase 2: the Gram kernel against its plain version and an f64 Gram.
+
+    Returns ({label: (kernel ms, plain ms)}, max abs error vs plain at the
+    first three shapes, max per-entry relative error of kernel and plain).
+    """
+    gen = torch.Generator(device=dev).manual_seed(0)
+    kernel_err = entry_err = plain_entry_err = 0.0
+    times = {}
+    shapes = (
+        (128, 200, 1280, "cell A"),
+        (64, 504, 5504, "cell B"),
+        (3, 37, 301, "ragged"),
+        (64, 504, 5504, "full range"),
+    )
+    for B, m, n, label in shapes:
+        A32 = torch.randint(-1, 2, (m, n), generator=gen, device=dev).float()
+        if label == "full range":
+            # w = sqrt(d2), d2 log-uniform over the IPM's clamp [1e-30, 1e30]
+            log_d2 = torch.rand((B, n), generator=gen, device=dev, dtype=torch.float64) * 60.0 - 30.0
+            w = torch.sqrt(10.0**log_d2).float()
+        else:
+            w = 10.0 ** (torch.rand((B, n), generator=gen, device=dev) * 9.0 - 6.0)
+        M = gram_mod.gram(A32, w)
+        plain = gram_mod.gram_reference(A32, w)
+        torch.cuda.synchronize()
+        Aw = A32.double()[None] * w.double()[:, None]
+        G64 = Aw @ Aw.mT
+        bound = Aw.abs() @ Aw.abs().mT  # per entry: sum_k |Aw_ik| |Aw_jk|
+        del Aw
+        scale = G64.abs().max().item()
+        err64 = (M.double() - G64).abs().max().item()
+        err_plain = (M - plain).abs().max().item()
+        check(err64 <= 1e-5 * scale, f"gram vs f64 at {(B, m, n)}: {err64} > 1e-5 * {scale}")
+        check(err_plain <= 1e-5 * scale, f"gram vs plain at {(B, m, n)}: {err_plain}")
+        check(torch.isfinite(M).all().item(), "gram output finite")
+        check(torch.equal(M, M.mT), f"gram output symmetric bit for bit at {(B, m, n)}")
+        rel_k = entry_rel_err(M, G64, bound)
+        rel_p = entry_rel_err(plain, G64, bound)
+        check(rel_k <= 4 * rel_p, f"gram per-entry error at {(B, m, n)}: {rel_k} > 4 x plain {rel_p}")
+        del G64, bound
+        if label != "full range":  # there the absolute error scales with w^2 ~ 1e30
+            kernel_err = max(kernel_err, err_plain)
+        entry_err = max(entry_err, rel_k)
+        plain_entry_err = max(plain_entry_err, rel_p)
+        ms = time_ms(torch, lambda: gram_mod.gram(A32, w))
+        plain_ms = time_ms(torch, lambda: gram_mod.gram_reference(A32, w))
+        times[label] = (ms, plain_ms)
+        print(
+            f"[kernel] gram B={B} m={m} n={n} ({label}): max_abs_err vs f64 {err64:.3e} "
+            f"(limit {1e-5 * scale:.3e}), vs plain {err_plain:.3e}; per-entry rel err "
+            f"{rel_k:.3e} vs plain {rel_p:.3e} (limit 4x); symmetric; "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (median of 20) on {card}"
+        )
+    return times, kernel_err, entry_err, plain_entry_err
 
 
 def main() -> int:
@@ -127,33 +194,7 @@ def main() -> int:
     )
 
     # -- phase 2: the kernel against its plain version ---------------------
-    gen = torch.Generator(device=dev).manual_seed(0)
-    kernel_err = 0.0
-    main_ms = main_plain_ms = None
-    for B, m, n in ((128, 200, 1280), (64, 504, 5504), (3, 37, 301)):
-        A32 = torch.randint(-1, 2, (m, n), generator=gen, device=dev).float()
-        w = 10.0 ** (torch.rand((B, n), generator=gen, device=dev) * 9.0 - 6.0)
-        M = gram_mod.gram(A32, w)
-        plain = gram_mod.gram_reference(A32, w)
-        torch.cuda.synchronize()
-        Aw = A32.double()[None] * w.double()[:, None]
-        G64 = Aw @ Aw.mT
-        scale = G64.abs().max().item()
-        err64 = (M.double() - G64).abs().max().item()
-        err_plain = (M - plain).abs().max().item()
-        check(err64 <= 1e-5 * scale, f"gram vs f64 at {(B, m, n)}: {err64} > 1e-5 * {scale}")
-        check(err_plain <= 1e-5 * scale, f"gram vs plain at {(B, m, n)}: {err_plain}")
-        check(torch.isfinite(M).all().item(), "gram output finite")
-        kernel_err = max(kernel_err, err_plain)
-        ms = time_ms(torch, lambda: gram_mod.gram(A32, w))
-        plain_ms = time_ms(torch, lambda: gram_mod.gram_reference(A32, w))
-        if main_ms is None:
-            main_ms, main_plain_ms = ms, plain_ms
-        print(
-            f"[kernel] gram B={B} m={m} n={n}: max_abs_err vs f64 {err64:.3e} "
-            f"(limit {1e-5 * scale:.3e}), vs plain {err_plain:.3e}; "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (median of 20) on {card}"
-        )
+    times, kernel_err, entry_err, plain_entry_err = kernel_phase(torch, gram_mod, dev, card)
 
     # -- phase 3: slice A, batched LP relaxations --------------------------
     timers.start("slice_a_setup")
@@ -307,8 +348,13 @@ def main() -> int:
         "launches": launches_a,
         "launches_slice_b": launches_b,
         "max_abs_err": kernel_err,
-        "ms": main_ms,
-        "plain_ms": main_plain_ms,
+        "ms": times["cell A"][0],
+        "plain_ms": times["cell A"][1],
+        "design": "bf16x6 mma.sync SYRK",
+        "max_entry_rel_err": entry_err,
+        "plain_max_entry_rel_err": plain_entry_err,
+        "ms_cell_b": times["cell B"][0],
+        "plain_ms_cell_b": times["cell B"][1],
     }]}))
     print(card)
     print(json.dumps({

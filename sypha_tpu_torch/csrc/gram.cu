@@ -5,100 +5,238 @@
 // A: [m, n] f32 (shared by every lane), w: [B, n] f32, M: [B, m, m] f32.
 //
 // Replaces the Pallas TPU kernel sypha_tpu/ops/pallas_gram.py:pallas_gram,
-// which formed the same matrices from a materialised [B, m, n] Aw = A * w.
+// which formed the same matrices from a materialised [B, m, n] Aw = A * w
+// with a dot_general at "highest" precision; on the TPU that f32 product is
+// itself several bf16 passes of the matrix unit.
 //
 // What bounds it on this card: per lane the kernel does 2 m^2 n FLOPs and
 // reads m n floats of A (the same A for every lane, so it stays in the 50 MB
-// L2 after the first lanes) plus n floats of w.  At the main path's shapes
-// (m = 200, n = 1280 and m = 504, n = 5504) that is hundreds of FLOPs per
-// byte, so the kernel is bound by fp32 FMA throughput, not by memory.  The
-// products must be IEEE fp32: the f32 Cholesky that consumes M breaks under
-// TF32, so the tensor cores are not used and fast-math is not enabled.
+// L2) plus n floats of w.  At the main path's shapes (m = 200, n = 1280 and
+// m = 504, n = 5504) that is hundreds of FLOPs per byte, so it is bound by
+// arithmetic.  fp32 FMAs on the CUDA cores give about 67 TFLOP/s; the bf16
+// tensor cores give 989.  The f32 Cholesky that consumes M needs products
+// good to f32 (TF32 or a single bf16 pass breaks it).
 //
-// What the design does about it: the column scale w[b] is applied while a
-// tile of A is staged in shared memory, so the [B, m, n] Aw temporary never
-// exists in device memory.  Each block computes one 64 x 64 output tile of
-// one lane (grid: tiles_j x tiles_i x B) and walks k in chunks of 16; each
-// of its 256 threads keeps a 4 x 4 register tile of accumulators, so every
-// 8 shared-memory loads feed 16 FMAs.  Ragged edges stage zeros, so any
-// m, n and B work.  There are no atomics: every output element is summed
-// by one thread in a fixed k order, so results are the same run to run and
-// M[b, i, j] == M[b, j, i] bit for bit.
+// What the design does about it:
+//  * bf16x6 split.  Each scaled operand x = A[i, k] * w[b, k], rounded to
+//    f32 as the plain version rounds it, is split exactly into three bf16
+//    pieces hi + mid + lo (bf16 has f32's exponent range and 3 x 8 bits of
+//    significand cover f32's 24).  The six products hi.hi, hi.mid, mid.hi,
+//    hi.lo, lo.hi, mid.mid are exact in the tensor core's f32 accumulator;
+//    the dropped ones are below 2^-23 of each term.  Products that fall in
+//    the f32 denormal range (the tensor cores may flush them) are below
+//    2^-126, which for |A| >= 1 and w >= 1e-15 (the IPM's clamp on d2) is
+//    below 2^-26 of the term they belong to.
+//  * mma.sync.m16n8k16 bf16 -> f32, fed by ldmatrix.  The tensor cores add
+//    with truncation, not round-to-nearest, so a sum kept in the MMA
+//    accumulator drifts low by about an ulp per MMA (3e-5 relative at
+//    n = 5504).  Each 16-wide k block of each fragment therefore sums its
+//    six products into a fresh accumulator, smallest first, so only the
+//    last MMA truncates at the block's scale, and the block is added to the
+//    running sum in f32 with round-to-nearest.
+//  * SYRK: only the lower-triangle 64 x 64 tiles run (grid.x walks
+//    T(T+1)/2 tiles, grid.y the lanes).  An off-diagonal tile writes its
+//    sum to M[b, i, j] and M[b, j, i]; a diagonal tile stages one side only
+//    and writes its lower half to both places, so M == M^T bit for bit.
+//  * The column scale is applied and the split made while staging, so the
+//    [B, m, n] Aw temporary never exists in device memory.  Rows past m and
+//    k past n stage zeros, so any m, n and B <= 65535 work.  There are no
+//    atomics: each element is summed in one fixed order, run to run.
+//
+// Each block has 4 warps, each owning a 32 x 32 quarter of the tile.  The
+// epilogue goes through shared memory so both the tile and its mirror are
+// written with coalesced rows.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <cstdint>
 
 namespace {
 
-constexpr int kTile = 64;                 // output tile edge
-constexpr int kChunk = 16;                // k values staged per step
-constexpr int kThreadsPerEdge = 16;       // 16 x 16 = 256 threads per block
-constexpr int kReg = kTile / kThreadsPerEdge;  // 4 x 4 accumulators per thread
+constexpr int kTile = 64;               // output tile edge
+constexpr int kChunk = 32;              // k values staged per step
+constexpr int kWarps = 4;               // 2 x 2 warps, 32 x 32 each
+constexpr int kThreads = 32 * kWarps;
+constexpr int kPlanes = 3;              // hi, mid, lo
+constexpr int kRowPitch = kChunk + 8;   // bf16 per staged row: 80 bytes, so
+                                        // the 8 rows of an ldmatrix hit 8
+                                        // distinct 16-byte bank groups
+constexpr int kOutPitch = kTile + 1;    // f32 per epilogue row
 
-__global__ void __launch_bounds__(kThreadsPerEdge * kThreadsPerEdge)
+struct Staged {
+  uint16_t x[2][kPlanes][kTile][kRowPitch];  // bf16 bits: [side][plane][row][k]
+};
+struct Epilogue {
+  float c[kTile][kOutPitch];
+};
+union Smem {
+  Staged in;
+  Epilogue out;
+};
+
+__device__ __forceinline__ uint32_t pack_bf16x2(__nv_bfloat16 lo_k, __nv_bfloat16 hi_k) {
+  __nv_bfloat162 v = __halves2bfloat162(lo_k, hi_k);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// x = hi + mid + lo exactly; each step's difference is exact in f32.
+__device__ __forceinline__ void split3(float x, __nv_bfloat16& hi, __nv_bfloat16& mid,
+                                       __nv_bfloat16& lo) {
+  hi = __float2bfloat16_rn(x);
+  const float r1 = x - __bfloat162float(hi);
+  mid = __float2bfloat16_rn(r1);
+  lo = __float2bfloat16_rn(r1 - __bfloat162float(mid));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const uint16_t* p) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+// d += a * b on a 16 x 8 x 16 bf16 fragment, f32 accumulate
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Stage 64 rows x 32 k of A * w, split into the three planes of `side`.
+// Thread t handles the k pair 2 (t % 16) of rows t / 16 + 8 q.
+__device__ __forceinline__ void stage_side(Staged& s, int side, const float* __restrict__ A,
+                                           int row0, int m, int n, int k, float w0, float w1) {
+  const int t = threadIdx.x;
+  const int kp = 2 * (t % 16);
+#pragma unroll
+  for (int q = 0; q < kTile / 8; ++q) {
+    const int r = t / 16 + 8 * q;
+    const int gr = row0 + r;
+    float a0 = 0.f, a1 = 0.f;
+    if (gr < m) {
+      const float* row = A + static_cast<size_t>(gr) * n;
+      if (k < n) a0 = row[k];
+      if (k + 1 < n) a1 = row[k + 1];
+    }
+    // __fmul_rn: never fused with the subtraction in split3, so x is the
+    // f32-rounded product, as in the plain version
+    __nv_bfloat16 h0, m0, l0, h1, m1, l1;
+    split3(__fmul_rn(a0, w0), h0, m0, l0);
+    split3(__fmul_rn(a1, w1), h1, m1, l1);
+    *reinterpret_cast<uint32_t*>(&s.x[side][0][r][kp]) = pack_bf16x2(h0, h1);
+    *reinterpret_cast<uint32_t*>(&s.x[side][1][r][kp]) = pack_bf16x2(m0, m1);
+    *reinterpret_cast<uint32_t*>(&s.x[side][2][r][kp]) = pack_bf16x2(l0, l1);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
     gram_kernel(const float* __restrict__ A, const float* __restrict__ w,
                 float* __restrict__ M, int m, int n) {
-  // k-major so that the inner loop reads a row of the tile; the +1 column
-  // spreads the transposing stores over the banks
-  __shared__ float s_i[kChunk][kTile + 1];
-  __shared__ float s_j[kChunk][kTile + 1];
+  __shared__ __align__(16) Smem smem;
 
-  const int b = blockIdx.z;
-  const int i0 = blockIdx.y * kTile;
-  const int j0 = blockIdx.x * kTile;
-  const int tx = threadIdx.x;  // output columns j0 + tx + 16 p
-  const int ty = threadIdx.y;  // output rows    i0 + ty + 16 q
-  const int t = ty * kThreadsPerEdge + tx;
-  // staging: 16 neighbouring threads read 16 neighbouring k of one row
-  const int lk = t % kChunk;
-  const int lr = t / kChunk;  // 0..15; rows lr + 16 q
+  // lower-triangle tile t -> (ti, tj), tj <= ti
+  const int t = blockIdx.x;
+  int ti = static_cast<int>((sqrtf(8.f * t + 1.f) - 1.f) * 0.5f);
+  while ((ti + 1) * (ti + 2) / 2 <= t) ++ti;
+  while (ti * (ti + 1) / 2 > t) --ti;
+  const int tj = t - ti * (ti + 1) / 2;
+  const bool diag = ti == tj;
+  const int i0 = ti * kTile;
+  const int j0 = tj * kTile;
+  const int b = blockIdx.y;
   const float* wb = w + static_cast<size_t>(b) * n;
 
-  float acc[kReg][kReg] = {};
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+  const int wy = warp / 2;  // rows 32 wy .. of the tile (i side)
+  const int wx = warp % 2;  // cols 32 wx .. of the tile (j side)
+  // on a diagonal tile the upper-right quarter is never read
+  const bool active = !(diag && wx > wy);
+  const int j_side = diag ? 0 : 1;
+
+  float acc[2][4][4] = {};
   for (int k0 = 0; k0 < n; k0 += kChunk) {
-    const int k = k0 + lk;
-    const bool k_in = k < n;
-    const float wk = k_in ? wb[k] : 0.f;
-#pragma unroll
-    for (int q = 0; q < kReg; ++q) {
-      const int r = lr + q * kThreadsPerEdge;
-      const int gi = i0 + r;
-      const int gj = j0 + r;
-      s_i[lk][r] = (k_in && gi < m) ? A[static_cast<size_t>(gi) * n + k] * wk : 0.f;
-      s_j[lk][r] = (k_in && gj < m) ? A[static_cast<size_t>(gj) * n + k] * wk : 0.f;
-    }
+    const int k = k0 + 2 * (threadIdx.x % 16);
+    const float w0 = k < n ? wb[k] : 0.f;
+    const float w1 = k + 1 < n ? wb[k + 1] : 0.f;
+    stage_side(smem.in, 0, A, i0, m, n, k, w0, w1);
+    if (!diag) stage_side(smem.in, 1, A, j0, m, n, k, w0, w1);
     __syncthreads();
+
+    if (active) {
 #pragma unroll
-    for (int kk = 0; kk < kChunk; ++kk) {
-      float a[kReg];
-      float c[kReg];
+      for (int ks = 0; ks < kChunk; ks += 16) {
+        uint32_t a[kPlanes][2][4];  // [plane][m16 fragment]
+        uint32_t bf[kPlanes][2][4];  // [plane][pair of n8 fragments]
 #pragma unroll
-      for (int q = 0; q < kReg; ++q) {
-        a[q] = s_i[kk][ty + q * kThreadsPerEdge];
-        c[q] = s_j[kk][tx + q * kThreadsPerEdge];
-      }
+        for (int p = 0; p < kPlanes; ++p) {
 #pragma unroll
-      for (int q = 0; q < kReg; ++q) {
+          for (int f = 0; f < 2; ++f) {
+            ldmatrix_x4(a[p][f],
+                        &smem.in.x[0][p][32 * wy + 16 * f + lane % 16][ks + (lane / 16) * 8]);
+            ldmatrix_x4(bf[p][f], &smem.in.x[j_side][p][32 * wx + 16 * f + (lane / 16) * 8 +
+                                                        lane % 8][ks + ((lane / 8) % 2) * 8]);
+          }
+        }
 #pragma unroll
-        for (int p = 0; p < kReg; ++p) {
-          acc[q][p] = fmaf(a[q], c[p], acc[q][p]);
+        for (int fi = 0; fi < 2; ++fi) {
+#pragma unroll
+          for (int fj = 0; fj < 4; ++fj) {
+            const int g = fj / 2, h = 2 * (fj % 2);
+            // a fresh sum per k16: small products first, so only the last
+            // (hi.hi) is truncated at the scale of the whole block
+            float d[4] = {};
+            mma_bf16(d, a[2][fi], bf[0][g][h], bf[0][g][h + 1]);  // lo.hi
+            mma_bf16(d, a[0][fi], bf[2][g][h], bf[2][g][h + 1]);  // hi.lo
+            mma_bf16(d, a[1][fi], bf[1][g][h], bf[1][g][h + 1]);  // mid.mid
+            mma_bf16(d, a[1][fi], bf[0][g][h], bf[0][g][h + 1]);  // mid.hi
+            mma_bf16(d, a[0][fi], bf[1][g][h], bf[1][g][h + 1]);  // hi.mid
+            mma_bf16(d, a[0][fi], bf[0][g][h], bf[0][g][h + 1]);  // hi.hi
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[fi][fj][e] += d[e];
+          }
         }
       }
     }
     __syncthreads();
   }
 
-  float* Mb = M + static_cast<size_t>(b) * m * m;
+  // accumulators -> shared tile (fragment rows g and g + 8, cols 2 q, 2 q + 1)
+  if (active) {
 #pragma unroll
-  for (int q = 0; q < kReg; ++q) {
-    const int gi = i0 + ty + q * kThreadsPerEdge;
-    if (gi >= m) continue;
+    for (int fi = 0; fi < 2; ++fi) {
 #pragma unroll
-    for (int p = 0; p < kReg; ++p) {
-      const int gj = j0 + tx + p * kThreadsPerEdge;
-      if (gj < m) Mb[static_cast<size_t>(gi) * m + gj] = acc[q][p];
+      for (int fj = 0; fj < 4; ++fj) {
+        const int r = 32 * wy + 16 * fi + lane / 4;
+        const int c = 32 * wx + 8 * fj + 2 * (lane % 4);
+        smem.out.c[r][c] = acc[fi][fj][0];
+        smem.out.c[r][c + 1] = acc[fi][fj][1];
+        smem.out.c[r + 8][c] = acc[fi][fj][2];
+        smem.out.c[r + 8][c + 1] = acc[fi][fj][3];
+      }
     }
+  }
+  __syncthreads();
+
+  float* Mb = M + static_cast<size_t>(b) * m * m;
+  const int c = threadIdx.x % kTile;
+  for (int r = threadIdx.x / kTile; r < kTile; r += kThreads / kTile) {
+    // the tile at (i0, j0); a diagonal tile takes its lower half both ways
+    const int gi = i0 + r;
+    const int gj = j0 + c;
+    if (gi < m && gj < m) {
+      Mb[static_cast<size_t>(gi) * m + gj] =
+          (!diag || r >= c) ? smem.out.c[r][c] : smem.out.c[c][r];
+    }
+    // the mirrored tile at (j0, i0)
+    const int mi = j0 + r;
+    const int mj = i0 + c;
+    if (!diag && mi < m && mj < m) Mb[static_cast<size_t>(mi) * m + mj] = smem.out.c[c][r];
   }
 }
 
@@ -106,13 +244,12 @@ __global__ void __launch_bounds__(kThreadsPerEdge * kThreadsPerEdge)
 
 // Launches the kernel on `stream` of `device`.  Returns cudaGetLastError()
 // after the launch (0 on success); the caller owns every buffer.
-extern "C" int sypha_gram_f32(const float* A, const float* w, float* M, int B,
-                              int m, int n, int device, cudaStream_t stream) {
+extern "C" int sypha_gram_f32(const float* A, const float* w, float* M, int B, int m, int n,
+                              int device, cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int tiles = (m + kTile - 1) / kTile;
-  const dim3 grid(tiles, tiles, B);
-  const dim3 block(kThreadsPerEdge, kThreadsPerEdge);
-  gram_kernel<<<grid, block, 0, stream>>>(A, w, M, m, n);
+  const dim3 grid(tiles * (tiles + 1) / 2, B);
+  gram_kernel<<<grid, kThreads, 0, stream>>>(A, w, M, m, n);
   return static_cast<int>(cudaGetLastError());
 }

@@ -4,8 +4,10 @@ The per-iteration normal-matrix formation is the IPM's largest FLOP block
 (O(B m^2 n) f32).  ``gram`` is the port of the Pallas TPU kernel
 ``sypha_tpu/ops/pallas_gram.py:pallas_gram``: on a CUDA tensor it launches
 the hand-written Hopper kernel in ``sypha_tpu_torch/csrc/gram.cu`` (see the
-note there), which applies the column scale while staging tiles of A, so the
-[B, m, n] ``Aw`` temporary that the JAX path built never exists.  On a CPU
+note there): a SYRK on the bf16 tensor cores that splits each f32 operand
+into three bf16 pieces and keeps the six products that carry f32 precision.
+It applies the column scale while staging tiles of A, so the [B, m, n]
+``Aw`` temporary that the JAX path built never exists.  On a CPU
 tensor it computes the same product with ``gram_reference``, the plain
 PyTorch version.  There is no fallback from the kernel to the plain version
 on the card.
@@ -20,7 +22,7 @@ import torch
 
 from sypha_tpu_torch.ops._build import load_library
 
-# the kernel's lane axis is gridDim.z
+# the kernel's lane axis is gridDim.y
 _MAX_LANES = 65535
 
 
