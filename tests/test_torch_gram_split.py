@@ -10,6 +10,8 @@ carry f32 precision, and that the IPM slice solved with this Gram matches
 the JAX package.
 """
 
+import pathlib
+
 import numpy as np
 import pytest
 import torch
@@ -88,15 +90,15 @@ def test_bf16x6_gram_holds_f32_precision(B, m, n, log10_d2):
     # the chip_smoke bound: no worse than 4x the plain f32 version
     assert _entry_rel_err(emulated, G64, bound) <= 4 * plain
     assert torch.isfinite(emulated).all()
-    # the three dropped products are below 2^-24 of each term: summed
-    # exactly (f64), the kept ones are that close to the true Gram
+    # the three dropped products are each at most about 2^-24 of their
+    # term: summed exactly (f64), the kept ones are that close per entry
     pieces = [p.double() for p in split3(A32[None] * w[:, None])]
     kept = sum(torch.einsum("bik,bjk->bij", pieces[a], pieces[b]) for a, b in KEPT)
     assert _entry_rel_err(kept, G64, bound) <= 2.0**-24
 
 
 TINY = "3 4\n2 3 4 5\n2 1 2\n2 2 3\n3 1 3 4\n"
-_DATA = __import__("pathlib").Path(__file__).resolve().parent.parent / "data"
+_DATA = pathlib.Path(__file__).resolve().parent.parent / "data"
 TEXTS = {
     "tiny": lambda: TINY,
     "demo_small": lambda: (_DATA / "demo_small.txt").read_text(),
