@@ -16,13 +16,23 @@ checkout.  Phases, each printed as it runs:
      against HiGHS, then again with the plain Gram for comparison;
   4. slice B: a 64-lane B&B node window with seeded fixings on a seeded
      scpnre-class LP (500 x 5000, 10%) through solve_node_batch, four lanes
-     checked against HiGHS, then again with the plain Gram.
+     checked against HiGHS, then again with the plain Gram;
+  5. slice C: slice A's instance on the padded-ELL operator, which
+     make_shared_batch_auto must pick: 128 lanes against HiGHS and against
+     the dense operator, then a 64-lane node window on an ELL base against
+     the same window on the dense base, with warm times of both operators;
+  6. MILP: branch_and_bound on a seeded scp4x-class instance whose LP
+     optimum lies below its integer optimum (found on the CPU with HiGHS):
+     (a) the default configuration against scipy's MILP optimum, (b) with
+     exact closure and cuts off, so that the tree branches, checked for
+     sound bounds; both on the ELL node operator with the Gram kernel.
 
 Any failed check raises, and the script exits non-zero; without a CUDA card
 it exits non-zero before doing anything.  The last line is the JSON status
 object and the line before it the card's name and power limit; the line
-before that lists each kernel with its launch count in the slices, its error
-against the plain version and both times.
+before that lists each kernel with its launch count in the slices (slice A
+as ``launches``, then slices B and C and the B&B), its error against the
+plain version and both times.
 """
 
 from __future__ import annotations
@@ -148,6 +158,225 @@ def kernel_phase(torch, gram_mod, dev, card):
     return times, kernel_err, entry_err, plain_entry_err
 
 
+def seeded_fixings(rng, lanes, ncols, n_pad):
+    """Slice B's style of node fixings: 0..5 columns fixed to 0 and 0..5 to 1."""
+    import numpy as np
+
+    fix0 = np.zeros((lanes, n_pad))
+    fix1 = np.zeros((lanes, n_pad))
+    for lane in range(lanes):
+        cols = rng.permutation(ncols)
+        k0, k1 = rng.integers(0, 6, size=2)
+        fix0[lane, cols[:k0]] = 1.0
+        fix1[lane, cols[k0 : k0 + k1]] = 1.0
+    return fix0, fix1
+
+
+def slice_c_phase(torch, st, gram_mod, dev, card, model, highs_obj):
+    """Phase 5: the padded-ELL operator on slice A's instance.
+
+    Returns the K1 launches of the ELL solve and the ELL window."""
+    import numpy as np
+
+    from sypha_tpu_torch.config import BnbOptions
+    from sypha_tpu_torch.io.standard_form import pad_standard_form_ell
+    from sypha_tpu_torch.ipm.shared import make_shared_batch_auto
+
+    lanes = 128
+    ell = make_shared_batch_auto(model, lanes, device=dev)
+    check(ell.is_sparse, "make_shared_batch_auto picks the ELL operator at scp4x density")
+    dense = st.make_shared_batch(st.pad_lp(model, m_pad=ell.m_pad, n_pad=ell.n_pad, device=dev), lanes)
+    opts = st.IpmOptions()
+    n_real = model.ncols + model.nrows
+
+    def solve(batch):
+        t0 = time.perf_counter()
+        out = st.mehrotra_solve_shared(batch, opts)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    solve(ell)  # warm-up of the ELL products
+    torch.cuda.reset_peak_memory_stats()
+    gram_mod.gram.launches = 0
+    state, _ = solve(ell)
+    launches = gram_mod.gram.launches
+    status = state.status.cpu().numpy()
+    obj = torch.sum(ell.c[:, :n_real] * state.x[:, :n_real], dim=-1).cpu().numpy()
+    check(np.all(status == st.IpmStatus.CONVERGED), f"slice C statuses {np.unique(status)}")
+    rel = np.max(np.abs(obj - highs_obj)) / abs(highs_obj)
+    check(rel <= 1e-6, f"slice C objective vs HiGHS: rel {rel}")
+    check(launches > 0, "gram launched on the ELL path")
+    dstate, _ = solve(dense)
+    dobj = torch.sum(dense.c[:, :n_real] * dstate.x[:, :n_real], dim=-1).cpu().numpy()
+    check(np.array_equal(dstate.status.cpu().numpy(), status), "slice C statuses, ELL vs dense")
+    rel_d = np.max(np.abs(obj - dobj) / np.abs(dobj))
+    check(rel_d <= 1e-8, f"slice C objectives, ELL vs dense: rel {rel_d}")
+    ell_s = statistics.median(solve(ell)[1] for _ in range(3))
+    dense_s = statistics.median(solve(dense)[1] for _ in range(3))
+    print(
+        f"[slice C] {lanes} lanes of {model.nrows}x{model.ncols} on the ELL operator (padded "
+        f"{ell.m_pad}x{ell.n_pad}, row slots {ell.A.row_idx.shape[1]}, column slots "
+        f"{ell.A.col_idx.shape[1]}): all CONVERGED, objective {obj[0]:.10f} vs HiGHS "
+        f"{highs_obj:.10f} (max rel {rel:.2e}); vs dense: max rel {rel_d:.2e}, iterations "
+        f"ELL {int(state.iterations.max())} / dense {int(dstate.iterations.max())}"
+    )
+    print(
+        f"[slice C] gram.launches={launches} in the ELL solve; warm solve (median of 3) "
+        f"ELL {ell_s:.4f} s, dense {dense_s:.4f} s on {card}"
+    )
+
+    # a node window on an ELL base and on the dense base
+    lanes = 64
+    rows = [(np.asarray(r, np.int32), np.ones(len(r))) for r in model.rows]
+    ell_lp = pad_standard_form_ell(
+        rows, np.ones(model.nrows), model.costs, n_struct=model.ncols,
+        m_pad=ell.m_pad, n_pad=ell.n_pad, device=dev,
+    )
+    dense_lp = st.pad_lp(model, m_pad=ell.m_pad, n_pad=ell.n_pad, device=dev)
+    fix0, fix1 = seeded_fixings(np.random.default_rng(2), lanes, model.ncols, ell.n_pad)
+    bnb = BnbOptions()
+    node_opts = st.IpmOptions(
+        gap_stall_window=bnb.gap_stall_branch_iters,
+        gap_stall_min_improv=bnb.gap_stall_min_improv_pct / 100.0,
+    )
+
+    def window(lp):
+        t0 = time.perf_counter()
+        out = st.solve_node_batch(lp, fix0, fix1, node_opts)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    window(ell_lp)  # warm-up
+    torch.cuda.synchronize()
+    base_mem = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    before = gram_mod.gram.launches
+    (st_e, _, pobj_e, _), _ = window(ell_lp)
+    window_launches = gram_mod.gram.launches - before
+    peak = (torch.cuda.max_memory_allocated() - base_mem) / 2**20
+    # the f64 gathers of one product on this window, from the shapes
+    av_mib = lanes * ell_lp.A.row_idx.numel() * 8 / 2**20
+    atu_mib = lanes * ell_lp.A.col_idx.numel() * 8 / 2**20
+    (st_d, _, pobj_d, _), _ = window(dense_lp)
+    # Lanes that end the endgame one step short of convergence (GAP_STALLED
+    # at a gap near 1e-8) flip between CONVERGED and GAP_STALLED under any
+    # change of rounding, and the operators sum A-products in different
+    # orders: the JAX package flips such lanes between its own ELL and dense
+    # operators too.  So every other status must be equal, the flips few,
+    # and a flipped lane's objective within 1e-6 of the converged one.
+    status_e, status_d = st_e.status.cpu().numpy(), st_d.status.cpu().numpy()
+    conv_e = status_e == st.IpmStatus.CONVERGED
+    conv_d = status_d == st.IpmStatus.CONVERGED
+    endgame = (st.IpmStatus.CONVERGED, st.IpmStatus.GAP_STALLED)
+    flips = (status_e != status_d) & np.isin(status_e, endgame) & np.isin(status_d, endgame)
+    check(np.array_equal(status_e[~flips], status_d[~flips]), "slice C window statuses, ELL vs dense")
+    check(flips.sum() <= lanes // 8, f"slice C window: {flips.sum()} endgame flips, ELL vs dense")
+    pe, pd = pobj_e.cpu().numpy(), pobj_d.cpu().numpy()
+    both = conv_e & conv_d
+    rel_w = np.max(np.abs(pe - pd)[both] / np.abs(pd[both]), initial=0.0)
+    check(rel_w <= 1e-8, f"slice C window objectives, ELL vs dense: rel {rel_w}")
+    rel_f = np.max(np.abs(pe - pd)[flips] / np.abs(pd[flips]), initial=0.0)
+    check(rel_f <= 1e-6, f"slice C window objectives of flipped lanes: rel {rel_f}")
+    check(window_launches > 0, "gram launched in the ELL node window")
+    ell_w = statistics.median(window(ell_lp)[1] for _ in range(3))
+    dense_w = statistics.median(window(dense_lp)[1] for _ in range(3))
+    def counts(status):
+        return {st.IpmStatus(v).name: int((status == v).sum()) for v in np.unique(status)}
+
+    print(
+        f"[slice C] {lanes}-lane node window on an ELL base vs the dense base: statuses "
+        f"ELL {counts(status_e)}, dense {counts(status_d)}, endgame flips at lanes "
+        f"{np.flatnonzero(flips).tolist()} (objectives max rel {rel_f:.2e}), objectives of "
+        f"lanes converged in both max rel {rel_w:.2e}, iterations ELL "
+        f"{int(st_e.iterations.max())} / dense {int(st_d.iterations.max())}, "
+        f"gram.launches={window_launches}"
+    )
+    print(
+        f"[slice C] warm window (median of 3) ELL {ell_w:.4f} s, dense {dense_w:.4f} s; "
+        f"ELL window peak device memory {peak:.1f} MiB above its inputs (one Av gather "
+        f"{av_mib:.1f} MiB, one ATu gather {atu_mib:.1f} MiB) on {card}"
+    )
+    return launches + window_launches
+
+
+def milp_phase(torch, st, gram_mod, card):
+    """Phase 6: branch and bound on a seeded scp4x-class instance with a root
+    gap, (a) default configuration, (b) exact closure and cuts off.
+
+    Returns the K1 launches of both runs."""
+    import numpy as np
+    from scipy.optimize import Bounds, LinearConstraint, linprog, milp
+
+    from sypha_tpu_torch import native
+    from sypha_tpu_torch.milp import branch_and_bound
+    from sypha_tpu_torch.milp.base_model import BaseModel
+    from sypha_tpu_torch.milp.bnb import _NodeLpSolver
+    from sypha_tpu_torch.testing import synthetic_scp
+
+    for seed in range(20):
+        model = st.parse_scp_text(synthetic_scp(200, 1000, 0.02, seed=seed), name=f"syn_scp4x_{seed}")
+        A = model.dense_matrix()
+        lp = linprog(model.costs, A_ub=-A, b_ub=-np.ones(model.nrows), bounds=(0, None), method="highs")
+        ip = milp(
+            c=model.costs, constraints=LinearConstraint(A, lb=1.0),
+            integrality=np.ones(model.ncols), bounds=Bounds(0, 1),
+        )
+        check(lp.status == 0 and ip.status == 0, f"HiGHS on seed {seed}: {lp.message} / {ip.message}")
+        if lp.fun < ip.fun - 1e-6:
+            break
+    else:
+        raise RuntimeError("chip_smoke check failed: no seed below 20 has a root gap")
+    opt = float(ip.fun)
+    print(
+        f"[milp] instance synthetic_scp(200, 1000, 0.02, seed={seed}): HiGHS LP optimum "
+        f"{lp.fun:.6f} < scipy MILP optimum {opt:.6f} (found on the CPU)"
+    )
+    check(native.available(), "the native host library builds and loads")
+    launches = 0
+    runs = {
+        "a": {},
+        "b": {"exact_closure": False, "cuts_enabled": False, "max_nodes": 192},
+    }
+    for name, extra in runs.items():
+        cfg = st.SolverConfig(verbosity=3)
+        cfg = cfg.replace(bnb=cfg.bnb.replace(hard_time_limit_sec=120.0, **extra))
+        _NodeLpSolver.window_stats.clear()
+        gram_mod.gram.launches = 0
+        t0 = time.perf_counter()
+        r = branch_and_bound(model, cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        k1 = gram_mod.gram.launches
+        windows = dict(_NodeLpSolver.window_stats)
+        launches += k1
+        print(
+            f"[milp] run ({name}) {extra or 'default configuration'}: {r.status.name} "
+            f"objective {r.objective:.6f} dual bound {r.dual_bound:.6f} nodes "
+            f"{r.nodes_processed} lp_iterations {r.total_lp_iterations} windows {windows} "
+            f"wall {wall:.3f} s (solver {r.wall_time_sec:.3f} s, of it node windows "
+            f"{windows.get('seconds', 0.0):.3f} s; warm-up {r.compile_time_sec:.3f} s) "
+            f"gram.launches={k1} on {card}"
+        )
+        check(windows.get("failed", 0) == 0, f"run ({name}): no window degraded to _failed_window")
+        check(windows.get("ell", 0) > 0 and windows.get("dense", 0) == 0, f"run ({name}) node operator ELL")
+        check(k1 > 0, f"run ({name}): gram launched in the B&B")
+        sol = np.asarray(r.solution)
+        check(
+            sol.shape == (model.ncols,) and BaseModel(model).is_cover(sol),
+            f"run ({name}): solution is a cover",
+        )
+        check(abs(float(model.costs @ sol) - r.objective) <= 1e-6, f"run ({name}): cover cost = objective")
+        if name == "a":
+            check(r.status == st.MilpStatus.OPTIMAL, f"run (a) status {r.status.name}")
+            check(abs(r.objective - opt) <= 1e-6, f"run (a) objective {r.objective} vs {opt}")
+        else:
+            check(r.nodes_processed > 0, "run (b) branches")
+            check(r.status in (st.MilpStatus.OPTIMAL, st.MilpStatus.FEASIBLE), f"run (b) status {r.status.name}")
+            check(r.objective >= opt - 1e-6, f"run (b) incumbent {r.objective} below the optimum {opt}")
+            check(r.dual_bound <= opt + 1e-6, f"run (b) dual bound {r.dual_bound} above the optimum {opt}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -264,14 +493,7 @@ def main() -> int:
     model_b = st.parse_scp_text(synthetic_scp(500, 5000, 0.10, seed=1), name="syn_scpnre")
     lp_b = st.pad_lp(model_b, device=dev)
     lanes = 64
-    rng = np.random.default_rng(1)
-    fix0 = np.zeros((lanes, lp_b.n_pad))
-    fix1 = np.zeros((lanes, lp_b.n_pad))
-    for lane in range(lanes):
-        cols = rng.permutation(model_b.ncols)
-        k0, k1 = rng.integers(0, 6, size=2)
-        fix0[lane, cols[:k0]] = 1.0
-        fix1[lane, cols[k0 : k0 + k1]] = 1.0
+    fix0, fix1 = seeded_fixings(np.random.default_rng(1), lanes, model_b.ncols, lp_b.n_pad)
     timers.stop("slice_b_setup")
     bnb = BnbOptions()
     node_opts = st.IpmOptions(
@@ -338,6 +560,16 @@ def main() -> int:
         f"[slice B] plain Gram: iterations {int(plain_b[0].iterations.max())} vs kernel "
         f"{int(iters_b.max())}, converged objectives max rel diff {rel:.2e}"
     )
+
+    # -- phase 5: slice C, the padded-ELL operator --------------------------
+    timers.start("slice_c")
+    launches_ell = slice_c_phase(torch, st, gram_mod, dev, card, model_a, highs_a)
+    timers.stop("slice_c")
+
+    # -- phase 6: MILP, branch and bound -------------------------------------
+    timers.start("milp")
+    launches_bnb = milp_phase(torch, st, gram_mod, card)
+    timers.stop("milp")
     print(timers.report())
 
     print(json.dumps({"kernels": [{
@@ -347,6 +579,8 @@ def main() -> int:
         "replaces": "sypha_tpu/ops/pallas_gram.py:40",
         "launches": launches_a,
         "launches_slice_b": launches_b,
+        "launches_ell": launches_ell,
+        "launches_bnb": launches_bnb,
         "max_abs_err": kernel_err,
         "ms": times["cell A"][0],
         "plain_ms": times["cell A"][1],

@@ -1,12 +1,15 @@
 """sypha_tpu_torch: the PyTorch / CUDA port of sypha_tpu.
 
-The batched LP relaxation path of the JAX package (sypha_tpu), on PyTorch:
-read an SCP instance, pad its standard form, and solve many LP lanes that
-share one constraint matrix with the Mehrotra IPM, the B&B node window
-included.  The f32 normal matrix of every IPM iteration comes from a
-hand-written Hopper kernel (ops.gram, csrc/gram.cu); the rest is plain
-PyTorch.  Nothing here imports JAX, and importing the package has no side
-effects: kernels are built at first use.
+The LP and MILP paths of the JAX package (sypha_tpu), on PyTorch: read an
+SCP instance, pad its standard form (dense or padded ELL), solve many LP
+lanes that share one constraint matrix with the Mehrotra IPM, and run
+branch and bound with presolve, heuristics, cuts and the exact-cover
+closure over batched node windows.  The f32 normal matrix of every IPM
+iteration comes from a hand-written Hopper kernel (ops.gram, csrc/gram.cu);
+the rest of the device work is plain PyTorch, the host work numpy and the
+C++ engine of csrc/sypha_host.cpp.  Nothing here imports JAX, and importing
+the package has no side effects: the kernel and the host library are built
+at first use.
 """
 
 from sypha_tpu_torch.config import IpmOptions, SolverConfig
@@ -20,8 +23,12 @@ from sypha_tpu_torch.ipm.shared import (
     SharedLpBatch,
     fix_columns,
     make_shared_batch,
+    make_shared_batch_auto,
+    make_shared_batch_sparse,
     mehrotra_solve_shared,
 )
+from sypha_tpu_torch.milp import MilpResult, branch_and_bound
+from sypha_tpu_torch.ops.ell import EllMatrix
 
 __all__ = [
     "IpmOptions",
@@ -40,5 +47,10 @@ __all__ = [
     "SharedLpBatch",
     "fix_columns",
     "make_shared_batch",
+    "make_shared_batch_auto",
+    "make_shared_batch_sparse",
     "mehrotra_solve_shared",
+    "MilpResult",
+    "branch_and_bound",
+    "EllMatrix",
 ]

@@ -55,7 +55,8 @@ class PaddedLp:
     For SCP this is ``[A0 | -I]`` with b = 1.  A stacked batch has a leading
     [B] axis on every field.
 
-      A: [m_pad, n_pad] f64; b: [m_pad] f64; c: [n_pad] f64;
+      A: [m_pad, n_pad] f64, or an ops.ell.EllMatrix of that shape (built by
+         io.standard_form.pad_standard_form_ell); b: [m_pad] f64; c: [n_pad] f64;
       row_pad: [m_pad] f64 (1.0 on pad rows, else 0);
       m_real, n_real, n_struct: int32 scalars (n_struct = structural columns
       before the surplus columns).

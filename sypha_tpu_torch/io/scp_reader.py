@@ -6,11 +6,9 @@ Format:
   then per row: a count k followed by k 1-based column indices.
 Tokens may be split across lines arbitrarily; we parse a flat token stream.
 
-This is the Python tokenizer of sypha_tpu/io/scp_reader.py.  The JAX
-package's ``read_scp_file`` first tries the native C++ reader
-(sypha_tpu/native.py); that binding comes to the port with the MILP host
-modules, and until then ``read_scp_file`` here always tokenizes in Python.
-Both give the same ScpModel.
+The port of sypha_tpu/io/scp_reader.py: ``read_scp_file`` first tries the
+native C++ reader (sypha_tpu_torch.native) and falls back to the Python
+tokenizer ``parse_scp_text``.  Both give the same ScpModel.
 """
 
 from __future__ import annotations
@@ -59,6 +57,17 @@ def parse_scp_text(text: str, name: str = "") -> ScpModel:
 
 def read_scp_file(path: str) -> ScpModel:
     name = os.path.splitext(os.path.basename(path))[0]
+
+    # the native reader of csrc/sypha_host.cpp when the library is
+    # available, else the Python tokenizer; both give the same model
+    from sypha_tpu_torch import native
+
+    parsed = native.read_scp_file_native(path)
+    if parsed is not None:
+        costs, row_ptr, row_idx, nrows, ncols = parsed
+        rows = [np.unique(row_idx[row_ptr[i] : row_ptr[i + 1]]) for i in range(nrows)]
+        return ScpModel(nrows=nrows, ncols=ncols, costs=costs, rows=rows, name=name)
+
     with open(path, "r") as f:
         text = f.read()
     return parse_scp_text(text, name=name)

@@ -9,8 +9,8 @@ core.problem.PaddedLp for the padding convention.  The buckets are those of
 sypha_tpu/io/standard_form.py (rows to a multiple of 8, columns to 128), so
 the port's lanes line up with the JAX package's, iterate for iterate.
 
-The JAX package's padded-ELL builder (``pad_standard_form_ell``) comes with
-the sparse operator in a later slice.
+``pad_standard_form_ell`` is the padded-ELL counterpart of
+``pad_standard_form``: same padding, with ``A`` an ops.ell.EllMatrix.
 """
 
 from __future__ import annotations
@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from sypha_tpu_torch.core.problem import PaddedLp, ScpModel
+from sypha_tpu_torch.ops.ell import ell_from_rows
 
 
 def _round_up(x: int, m: int) -> int:
@@ -57,6 +58,29 @@ def scp_standard_form(model: ScpModel) -> Tuple[np.ndarray, np.ndarray, np.ndarr
     return A, b, c
 
 
+def _padded_lp(A, bp: np.ndarray, cp: np.ndarray, m: int, n: int, n_struct: int, device) -> PaddedLp:
+    """PaddedLp of a padded A (tensor or EllMatrix) and host b, c on ``device``;
+    rows from m on are pad rows."""
+    row_pad = np.zeros(len(bp), dtype=np.float64)
+    row_pad[m:] = 1.0
+
+    def f64(a):
+        return torch.as_tensor(a, dtype=torch.float64, device=device)
+
+    def i32(v):
+        return torch.tensor(v, dtype=torch.int32, device=device)
+
+    return PaddedLp(
+        A=A,
+        b=f64(bp),
+        c=f64(cp),
+        row_pad=f64(row_pad),
+        m_real=i32(m),
+        n_real=i32(n),
+        n_struct=i32(n_struct),
+    )
+
+
 def pad_standard_form(
     A: np.ndarray,
     b: np.ndarray,
@@ -81,23 +105,8 @@ def pad_standard_form(
     bp[:m] = b
     cp = np.ones(np_, dtype=np.float64)  # pad columns get cost 1 (kept interior, -> 0)
     cp[:n] = c
-    row_pad = np.zeros(mp, dtype=np.float64)
-    row_pad[m:] = 1.0
-
-    def f64(a):
-        return torch.as_tensor(a, dtype=torch.float64, device=device)
-
-    def i32(v):
-        return torch.tensor(v, dtype=torch.int32, device=device)
-
-    return PaddedLp(
-        A=f64(Ap),
-        b=f64(bp),
-        c=f64(cp),
-        row_pad=f64(row_pad),
-        m_real=i32(m),
-        n_real=i32(n),
-        n_struct=i32(n_struct),
+    return _padded_lp(
+        torch.as_tensor(Ap, dtype=torch.float64, device=device), bp, cp, m, n, n_struct, device
     )
 
 
@@ -114,6 +123,37 @@ def pad_lp(
         A, b, c, n_struct=model.ncols, m_pad=m_pad, n_pad=n_pad,
         extra_rows=extra_rows, device=device,
     )
+
+
+def pad_standard_form_ell(
+    row_data,
+    rhs: np.ndarray,
+    costs: np.ndarray,
+    n_struct: int,
+    m_pad: int,
+    n_pad: int,
+    device: torch.device | str = "cpu",
+) -> PaddedLp:
+    """Sparse (padded-ELL) counterpart of pad_standard_form, on ``device``.
+
+    ``row_data``: per row, (structural column indices, values); each row i
+    also gains its surplus column n_struct + i with -1.  ``costs``:
+    structural costs [n_struct]; surplus columns cost 0, pad columns 1 (the
+    conventions of pad_standard_form).  The dense [m_pad, n_pad] f64 matrix
+    never exists: every product on the returned LP goes through the
+    EllMatrix.
+    """
+    m = len(row_data)
+    n = n_struct + m
+    if m_pad < m or n_pad < n:
+        raise ValueError(f"padded dims ({m_pad},{n_pad}) smaller than real ({m},{n})")
+    A = ell_from_rows(row_data, n_struct=n_struct, m_pad=m_pad, n_pad=n_pad, device=device)
+    bp = np.zeros(m_pad, dtype=np.float64)
+    bp[:m] = rhs
+    cp = np.ones(n_pad, dtype=np.float64)
+    cp[:n_struct] = costs
+    cp[n_struct:n] = 0.0
+    return _padded_lp(A, bp, cp, m, n, n_struct, device)
 
 
 def stack_lps(lps: Sequence[PaddedLp]) -> PaddedLp:

@@ -20,11 +20,16 @@ by that factor (ops.spd).  The loop runs eagerly: the test that any lane is
 still RUNNING is one device-to-host sync per iteration, as the test in the
 PCG is one per CG step.
 
+The shared A is a dense f64 tensor or a padded-ELL operator
+(ops.ell.EllMatrix, from ``make_shared_batch_sparse`` / ``_auto``).  With
+ELL every f64 product is matrix-free, and the dense-factor strategy forms
+the f32 Gram from a transient ``A.todense(float32)``, so the Gram kernel
+runs on both operators.
+
 The iterate (``IpmState``, from sypha_tpu/ipm/dense.py) and every f64
 quantity stay float64; only the Gram matrix, its factor and the
-preconditioner apply are float32.  The padded-ELL operator
-(``make_shared_batch_sparse`` / ``_auto``) and the tensor-parallel
-``axis_name`` of the JAX package are not ported yet.
+preconditioner apply are float32.  The tensor-parallel ``axis_name`` of the
+JAX package is not ported yet.
 """
 
 from __future__ import annotations
@@ -32,19 +37,17 @@ from __future__ import annotations
 import dataclasses
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from sypha_tpu_torch.config import IpmOptions
 from sypha_tpu_torch.core.problem import PaddedLp
 from sypha_tpu_torch.core.status import IpmStatus
+from sypha_tpu_torch.io.standard_form import bucket_dims, pad_lp, pad_standard_form_ell
+from sypha_tpu_torch.ops.ell import EllMatrix
 from sypha_tpu_torch.ops.gram import gram
 from sypha_tpu_torch.ops.linalg import block_chol_inverse
 from sypha_tpu_torch.ops.spd import pcg_solve
-
-_ELL_TODO = (
-    "the padded-ELL sparse operator is not ported yet (ROADMAP queue 1 item 4); "
-    "use make_shared_batch on a dense PaddedLp"
-)
 
 
 @dataclass(frozen=True)
@@ -76,8 +79,9 @@ def _factor_params(opts: IpmOptions):
 class SharedLpBatch:
     """B standard-form LP lanes min c.x, A(mask)x = b, x >= 0 sharing one A.
 
-    A: [m, n] f64 (shared); b: [B, m]; c: [B, n]; col_mask: [B, n] in {0,1};
-    row_pad: [m] (1 on pad rows); obj_offset: [B].  All f64, one device.
+    A: [m, n] f64 (shared), a dense tensor or an ops.ell.EllMatrix;
+    b: [B, m]; c: [B, n]; col_mask: [B, n] in {0,1}; row_pad: [m] (1 on pad
+    rows); obj_offset: [B].  All f64, one device.
     """
 
     A: torch.Tensor
@@ -99,11 +103,17 @@ class SharedLpBatch:
     def n_lanes(self) -> int:
         return self.b.shape[-2] if self.b.ndim >= 2 else 1
 
+    @property
+    def is_sparse(self) -> bool:
+        return isinstance(self.A, EllMatrix)
 
-def _A_products(A: torch.Tensor):
-    """(Av, ATu, sqAv) for a dense [m, n] A:
+
+def _A_products(A):
+    """(Av, ATu, sqAv) for a dense [m, n] A or an EllMatrix:
     Av: [..., n] -> [..., m] = A @ v;  ATu: [..., m] -> [..., n] = A^T @ u;
     sqAv: [..., n] -> [..., m] = (A∘A) @ d (the Jacobi-diagonal product)."""
+    if isinstance(A, EllMatrix):
+        return A.Av, A.ATu, A.sqAv
     A2 = A * A
     return (
         lambda v: v @ A.T,
@@ -113,10 +123,11 @@ def _A_products(A: torch.Tensor):
 
 
 def make_shared_batch(lp: PaddedLp, n_lanes: int) -> SharedLpBatch:
-    """Replicate a single PaddedLp into a SharedLpBatch of ``n_lanes``."""
-    if not isinstance(lp.A, torch.Tensor):
-        raise NotImplementedError(_ELL_TODO)
-    if lp.A.ndim != 2:
+    """Replicate a single PaddedLp into a SharedLpBatch of ``n_lanes``.
+
+    ``lp.A`` may be a dense [m, n] tensor or an EllMatrix (from
+    io.standard_form.pad_standard_form_ell); the batch carries it unchanged."""
+    if not isinstance(lp.A, EllMatrix) and lp.A.ndim != 2:
         raise ValueError("make_shared_batch expects an unbatched PaddedLp")
     B = n_lanes
     n = lp.n_pad
@@ -128,20 +139,53 @@ def make_shared_batch(lp: PaddedLp, n_lanes: int) -> SharedLpBatch:
         c=lp.c.expand(B, n).contiguous(),
         col_mask=mask,
         row_pad=lp.row_pad,
-        obj_offset=torch.zeros((B,), dtype=lp.A.dtype, device=lp.A.device),
+        obj_offset=torch.zeros((B,), dtype=lp.c.dtype, device=lp.c.device),
     )
 
 
-def make_shared_batch_sparse(model, n_lanes, m_pad=None, n_pad=None) -> SharedLpBatch:
-    """Padded-ELL counterpart of make_shared_batch (not ported yet)."""
-    raise NotImplementedError(_ELL_TODO)
+def make_shared_batch_sparse(
+    model,
+    n_lanes: int,
+    m_pad: int | None = None,
+    n_pad: int | None = None,
+    device: torch.device | str = "cpu",
+) -> SharedLpBatch:
+    """ScpModel -> SharedLpBatch whose A is a padded-ELL operator on ``device``.
+
+    Same padding conventions as pad_lp/make_shared_batch (pad columns cost 1
+    and masked out; pad rows rhs 0 with row_pad regularisation), but the
+    standard form [A0 | -I] is built straight into EllMatrix slots: a dense
+    f64 [m_pad, n_pad] matrix never exists.
+    """
+    m, n0 = model.nrows, model.ncols
+    auto_mp, auto_np = bucket_dims(m, n0 + m)
+    rows = [(np.asarray(cols, dtype=np.int32), np.ones(len(cols))) for cols in model.rows]
+    lp = pad_standard_form_ell(
+        rows, np.ones(m), model.costs, n_struct=n0,
+        m_pad=m_pad if m_pad is not None else auto_mp,
+        n_pad=n_pad if n_pad is not None else auto_np,
+        device=device,
+    )
+    return make_shared_batch(lp, n_lanes)
 
 
 def make_shared_batch_auto(
-    model, n_lanes, m_pad=None, n_pad=None, density_threshold=0.05
+    model,
+    n_lanes: int,
+    m_pad: int | None = None,
+    n_pad: int | None = None,
+    density_threshold: float = 0.05,
+    device: torch.device | str = "cpu",
 ) -> SharedLpBatch:
-    """Operator selection by density between dense and padded ELL (not ported yet)."""
-    raise NotImplementedError(_ELL_TODO)
+    """Operator selection by density: padded ELL at or below
+    ``density_threshold`` of the standard form [A0 | -I], dense above.  The
+    0.05 crossover is the JAX package's (measured there on a TPU v5e); the
+    port keeps it for parity."""
+    nnz = sum(len(r) for r in model.rows) + model.nrows
+    density = nnz / float(model.nrows * (model.ncols + model.nrows))
+    if density <= density_threshold:
+        return make_shared_batch_sparse(model, n_lanes, m_pad, n_pad, device=device)
+    return make_shared_batch(pad_lp(model, m_pad=m_pad, n_pad=n_pad, device=device), n_lanes)
 
 
 def fix_columns(batch: SharedLpBatch, fix0, fix1) -> SharedLpBatch:
@@ -294,7 +338,10 @@ def mehrotra_solve_shared(
     dev = c.device
     ft, ridge = _factor_params(opts)
     use_cg = use_cg_strategy(opts, batch.m_pad)
-    A32 = None if use_cg else A.to(ft).contiguous()
+    if use_cg:
+        A32 = None
+    else:
+        A32 = A.todense(ft) if batch.is_sparse else A.to(ft).contiguous()
     row_reg = batch.row_pad.expand(b.shape)
     RUNNING = int(IpmStatus.RUNNING)
 

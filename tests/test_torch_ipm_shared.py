@@ -76,10 +76,18 @@ def test_fix_columns_matches_jax():
 
 
 def test_sparse_operator_is_not_ported_yet():
+    """The sparse entry points build the padded-ELL batch of the JAX package
+    (TINY's standard form is 7/21 = 33% dense, so ``_auto`` picks dense)."""
     model = treader.parse_scp_text(TINY)
-    for make in (tshared.make_shared_batch_sparse, tshared.make_shared_batch_auto):
-        with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-            make(model, 2)
+    jmodel = jreader.parse_scp_text(TINY)
+    tb = tshared.make_shared_batch_sparse(model, 2)
+    jb = jshared.make_shared_batch_sparse(jmodel, 2)
+    assert tb.is_sparse and jb.is_sparse
+    np.testing.assert_array_equal(tb.A.todense().numpy(), np.asarray(jb.A.todense()))
+    for f in ("b", "c", "col_mask", "row_pad", "obj_offset"):
+        np.testing.assert_array_equal(getattr(tb, f).numpy(), np.asarray(getattr(jb, f)), err_msg=f)
+    assert not tshared.make_shared_batch_auto(model, 2).is_sparse
+    assert tshared.make_shared_batch_auto(model, 2, density_threshold=0.5).is_sparse
 
 
 def test_initial_point_matches_jax():
