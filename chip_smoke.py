@@ -25,14 +25,26 @@ checkout.  Phases, each printed as it runs:
      optimum lies below its integer optimum (found on the CPU with HiGHS):
      (a) the default configuration against scipy's MILP optimum, (b) with
      exact closure and cuts off, so that the tree branches, checked for
-     sound bounds; both on the ELL node operator with the Gram kernel.
+     sound bounds; both on the ELL node operator with the Gram kernel;
+  7. interfaces, every run on the default device and counted: (a) the CLI
+     in process on the scpnre-class LP against HiGHS, the single-LP latency
+     of solve_lp at scpnre and scp4x class, K1 at one lane; (b) ``python3 -m
+     sypha_tpu_torch`` as a subprocess on phase 6's MILP, with no --device;
+     (c) the Solver on each route: the scp4x-class model as an LP and as a
+     MILP, a general LP with every row type, maximisation and an offset
+     (objective and duals against HiGHS), a knapsack (generic binary) and
+     bounded general integers (binarized), against scipy; (d)
+     solve_lp_batch over four instances in one 64-lane bucket, one shared
+     call per instance, then warm-started from the cold iterates.
 
 Any failed check raises, and the script exits non-zero; without a CUDA card
 it exits non-zero before doing anything.  The last line is the JSON status
 object and the line before it the card's name and power limit; the line
 before that lists each kernel with its launch count in the slices (slice A
-as ``launches``, then slices B and C and the B&B), its error against the
-plain version and both times.
+as ``launches``, then slices B and C, the B&B, the API and the in-process
+CLI run), its error against the plain version, its times against the plain
+version and the one-call library einsum, and its bound (the larger of the
+f32 SYRK's FLOPs over the f32 peak and its bytes over HBM bandwidth).
 """
 
 from __future__ import annotations
@@ -104,7 +116,7 @@ def highs_objective(model, fix0=None, fix1=None):
 def kernel_phase(torch, gram_mod, dev, card):
     """Phase 2: the Gram kernel against its plain version and an f64 Gram.
 
-    Returns ({label: (kernel ms, plain ms)}, max abs error vs plain at the
+    Returns ({label: (kernel ms, plain ms, library ms)}, max abs error vs plain at the
     first three shapes, max per-entry relative error of kernel and plain).
     """
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -148,12 +160,14 @@ def kernel_phase(torch, gram_mod, dev, card):
         plain_entry_err = max(plain_entry_err, rel_p)
         ms = time_ms(torch, lambda: gram_mod.gram(A32, w))
         plain_ms = time_ms(torch, lambda: gram_mod.gram_reference(A32, w))
-        times[label] = (ms, plain_ms)
+        library_ms = time_ms(torch, lambda: gram_library_call(torch, A32, w))
+        times[label] = (ms, plain_ms, library_ms)
         print(
             f"[kernel] gram B={B} m={m} n={n} ({label}): max_abs_err vs f64 {err64:.3e} "
             f"(limit {1e-5 * scale:.3e}), vs plain {err_plain:.3e}; per-entry rel err "
             f"{rel_k:.3e} vs plain {rel_p:.3e} (limit 4x); symmetric; "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (median of 20) on {card}"
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library einsum {library_ms:.4f} ms "
+            f"(median of 20) on {card}"
         )
     return times, kernel_err, entry_err, plain_entry_err
 
@@ -303,7 +317,8 @@ def milp_phase(torch, st, gram_mod, card):
     """Phase 6: branch and bound on a seeded scp4x-class instance with a root
     gap, (a) default configuration, (b) exact closure and cuts off.
 
-    Returns the K1 launches of both runs."""
+    Returns the K1 launches of both runs, the instance's seed and its MILP
+    optimum."""
     import numpy as np
     from scipy.optimize import Bounds, LinearConstraint, linprog, milp
 
@@ -374,7 +389,422 @@ def milp_phase(torch, st, gram_mod, card):
             check(r.status in (st.MilpStatus.OPTIMAL, st.MilpStatus.FEASIBLE), f"run (b) status {r.status.name}")
             check(r.objective >= opt - 1e-6, f"run (b) incumbent {r.objective} below the optimum {opt}")
             check(r.dual_bound <= opt + 1e-6, f"run (b) dual bound {r.dual_bound} above the optimum {opt}")
-    return launches
+    return launches, seed, opt
+
+
+# H100 SXM published peaks (NVIDIA data sheet, dense): f32 outside the tensor
+# cores, bf16 on them, HBM3 bandwidth
+F32_FLOPS = 67e12
+BF16_FLOPS = 989e12
+HBM_BYTES = 3.35e12
+
+
+def gram_bound(B: int, m: int, n: int):
+    """Least time of one Gram call on the card: the lower-triangle SYRK's
+    f32 FLOPs (2 B m(m+1)/2 n) over the f32 peak, against A, w read once and
+    M written once over HBM bandwidth.  Returns (ms, bound_by, bf16x6 ms):
+    the last is the kernel's own work, six bf16 products, over the bf16 peak."""
+    flops = 2.0 * B * (m * (m + 1) / 2) * n
+    bytes_ = 4.0 * (m * n + B * n + B * m * m)
+    ops_ms, bytes_ms = flops / F32_FLOPS * 1e3, bytes_ / HBM_BYTES * 1e3
+    bound_by = "operations" if ops_ms >= bytes_ms else "bytes"
+    return max(ops_ms, bytes_ms), bound_by, 6.0 * flops / BF16_FLOPS * 1e3
+
+
+def gram_library_call(torch, A32, w):
+    """One PyTorch call computing the Gram function on the same inputs."""
+    return torch.einsum("ik,bk,bk,jk->bij", A32, w, w, A32)
+
+
+def cli_lines(out: str) -> dict:
+    """The CLI's ``KEY: value`` result lines."""
+    return {
+        line.split(":", 1)[0]: line.split(":", 1)[1].strip()
+        for line in out.splitlines()
+        if ":" in line and line[:1].isupper()
+    }
+
+
+# Loaded by the CLI subprocess of phase 7 through PYTHONPATH: it reports the
+# process's K1 launches at exit, then runs the interpreter's own
+# sitecustomize, if there is one.
+LAUNCH_HOOK = '''
+import atexit, importlib.machinery, importlib.util, os, sys
+
+def _report():
+    gram = sys.modules.get("sypha_tpu_torch.ops.gram")
+    print(f"GRAM_LAUNCHES {gram.gram.launches if gram else 0}", file=sys.stderr)
+
+atexit.register(_report)
+_here = os.path.dirname(os.path.abspath(__file__))
+_spec = importlib.machinery.PathFinder.find_spec(
+    "sitecustomize", [p for p in sys.path if os.path.abspath(p or os.curdir) != _here]
+)
+if _spec is not None:
+    _spec.loader.exec_module(importlib.util.module_from_spec(_spec))
+'''
+
+
+def general_lp(Solver, dev):
+    """A seeded general LP on the Solver API (100 rows by 300 columns: 30 <=,
+    30 >=, 20 equality and 20 range rows; maximisation with an offset) and
+    HiGHS's optimum and constraint duals, d objective / d bound, for it."""
+    import numpy as np
+    from scipy.optimize import linprog
+
+    rng = np.random.default_rng(5)
+    n, offset = 300, 12.5
+    x0 = rng.uniform(0.5, 2.0, n)
+    cost = rng.uniform(0.0, 1.0, n)
+    s = Solver("general_lp", device=dev)
+    s.parameters().verbosity = 0
+    xs = [s.MakeNumVar(0.0, s.infinity(), f"x{j}") for j in range(n)]
+    A_ub, b_ub, A_eq, b_eq, rows = [], [], [], [], []
+    for i, kind in enumerate(["le"] * 30 + ["ge"] * 30 + ["eq"] * 20 + ["range"] * 20):
+        if i == 0:
+            a = np.ones(n)  # a budget row keeps the maximisation bounded
+        else:
+            a = np.where(rng.random(n) < 0.1, rng.uniform(-1.0, 1.0, n), 0.0)
+        act = float(a @ x0)
+        lb, ub = {"le": (-s.infinity(), act + 1.0), "ge": (act - 1.0, s.infinity()),
+                  "eq": (act, act), "range": (act - 1.0, act + 1.0)}[kind]
+        ct = s.MakeRowConstraint(lb, ub)
+        for j in np.flatnonzero(a):
+            ct.SetCoefficient(xs[j], float(a[j]))
+        # where the row's bounds sit in HiGHS's minimisation of -cost.x
+        if kind == "eq":
+            rows.append((("eq", len(A_eq), -1.0),))
+            A_eq.append(a)
+            b_eq.append(act)
+            continue
+        parts = []
+        if kind in ("le", "range"):
+            parts.append(("ub", len(A_ub), -1.0))
+            A_ub.append(a)
+            b_ub.append(ub)
+        if kind in ("ge", "range"):
+            parts.append(("ub", len(A_ub), 1.0))
+            A_ub.append(-a)
+            b_ub.append(-lb)
+        rows.append(tuple(parts))
+    obj = s.MutableObjective()
+    for x, cj in zip(xs, cost):
+        obj.SetCoefficient(x, float(cj))
+    obj.SetOffset(offset)
+    obj.SetMaximization()
+    ref = linprog(-cost, A_ub=np.array(A_ub), b_ub=b_ub, A_eq=np.array(A_eq), b_eq=b_eq,
+                  bounds=(0, None), method="highs")
+    check(ref.status == 0, f"HiGHS on the general LP: {ref.message}")
+    marg = {"ub": ref.ineqlin.marginals, "eq": ref.eqlin.marginals}
+    duals = np.array([sum(sign * marg[k][i] for k, i, sign in parts) for parts in rows])
+    return s, -ref.fun + offset, duals
+
+
+def knapsack(Solver, dev):
+    """A seeded 30-item knapsack (generic binary route) and scipy's optimum."""
+    import numpy as np
+    from scipy.optimize import Bounds, LinearConstraint, milp
+
+    rng = np.random.default_rng(0)
+    w = rng.integers(5, 40, 30).astype(float)
+    v = rng.integers(5, 60, 30).astype(float)
+    cap = float(w.sum() // 2)
+    s = Solver("knapsack30", device=dev)
+    s.parameters().verbosity = 0
+    s.parameters().bnb_hard_time_limit_sec = 60.0
+    xs = [s.MakeBoolVar(f"x{j}") for j in range(30)]
+    ct = s.MakeRowConstraint(-s.infinity(), cap)
+    for x, wj, vj in zip(xs, w, v):
+        ct.SetCoefficient(x, float(wj))
+        s.MutableObjective().SetCoefficient(x, float(vj))
+    s.MutableObjective().SetMaximization()
+    ref = milp(-v, constraints=LinearConstraint(w[None], ub=cap), integrality=np.ones(30),
+               bounds=Bounds(0, 1))
+    check(ref.status == 0, f"scipy milp on the knapsack: {ref.message}")
+    return s, -ref.fun
+
+
+def bounded_integers(Solver, dev):
+    """A seeded model of bounded general integers (binarized route) and
+    scipy's optimum: min c.x, A x >= r, x in [lb, ub] integer."""
+    import numpy as np
+    from scipy.optimize import Bounds, LinearConstraint, milp
+
+    rng = np.random.default_rng(2)
+    nv, nr = 5, 3
+    lbs = rng.integers(0, 3, nv).astype(float)
+    ubs = lbs + rng.integers(2, 6, nv)
+    cost = rng.integers(1, 10, nv).astype(float)
+    A = rng.integers(0, 6, (nr, nv)).astype(float)
+    rhs = np.floor(0.6 * (A @ ubs))
+    s = Solver("bounded_integers", device=dev)
+    s.parameters().verbosity = 0
+    s.parameters().bnb_hard_time_limit_sec = 60.0
+    xs = [s.MakeIntVar(float(lo), float(hi), f"x{j}") for j, (lo, hi) in enumerate(zip(lbs, ubs))]
+    for i in range(nr):
+        ct = s.MakeRowConstraint(float(rhs[i]), s.infinity())
+        for j in np.flatnonzero(A[i]):
+            ct.SetCoefficient(xs[j], float(A[i, j]))
+    for x, cj in zip(xs, cost):
+        s.MutableObjective().SetCoefficient(x, float(cj))
+    s.MutableObjective().SetMinimization()
+    ref = milp(cost, constraints=LinearConstraint(A, lb=rhs), integrality=np.ones(nv),
+               bounds=Bounds(lbs, ubs))
+    check(ref.status == 0, f"scipy milp on the bounded integers: {ref.message}")
+    return s, ref.fun
+
+
+def scp_solver(Solver, dev, model, disable_bnb: bool):
+    """The scp4x-class model built as the reference's acceptance demo does."""
+    s = Solver("scp4x_" + ("lp" if disable_bnb else "milp"), device=dev)
+    s.parameters().verbosity = 1
+    s.parameters().disable_bnb = disable_bnb
+    s.parameters().bnb_hard_time_limit_sec = 120.0
+    xs = [s.MakeBoolVar(f"x{j}") for j in range(model.ncols)]
+    for x, cj in zip(xs, model.costs):
+        s.MutableObjective().SetCoefficient(x, float(cj))
+    s.MutableObjective().SetMinimization()
+    for row in model.rows:
+        ct = s.MakeRowConstraint(1.0, s.infinity())
+        for j in row:
+            ct.SetCoefficient(xs[int(j)], 1.0)
+    return s
+
+
+def interfaces_phase(torch, st, gram_mod, dev, card, model_a, highs_a, model_b, milp_seed, milp_opt):
+    """Phase 7: the user entry points on the card, each run counted.
+
+    (a) the CLI in process on an scpnre-class LP, and the single-LP latency
+    of solve_lp at scpnre and scp4x class; (b) the CLI as a subprocess on
+    the MILP with no --device; (c) the Solver, one route per run; (d)
+    solve_lp_batch over four instances in one bucket, cold and warm.
+    Returns (K1 launches of the Solver and solve_lp_batch runs, K1 launches
+    of the in-process CLI run, {label: (latency s, solve s, launches)},
+    {shape: (kernel ms, plain ms, library ms)} at B = 1)."""
+    import atexit
+    import contextlib
+    import io
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from sypha_tpu_torch import cli
+    from sypha_tpu_torch.api import ResultStatus, Solver
+    from sypha_tpu_torch.ipm import driver
+
+    def counted(label, fn):
+        gram_mod.gram.launches = 0
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = gram_mod.gram.launches
+        check(launches > 0, f"{label}: gram launched")
+        return out, wall, launches
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    atexit.register(shutil.rmtree, tmp, ignore_errors=True)
+
+    # (a) the CLI in process, LP at scpnre class; then single-LP latency
+    highs_b = highs_objective(model_b)
+    path_b = os.path.join(tmp, "scpnre_class.txt")
+    with open(path_b, "w") as f:
+        f.write(scpnre_text())
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc, wall, launches_cli = counted(
+            "cli LP", lambda: cli.main(["--input-file", path_b, "--disable-bnb", "--verbosity", "1"])
+        )
+    out = cli_lines(buf.getvalue())
+    check(rc == 0, f"cli LP return code {rc}")
+    for key in ("PRIMAL", "DUAL"):
+        rel = abs(float(out[key]) - highs_b) / abs(highs_b)
+        check(rel <= 1e-6, f"cli LP {key} {out[key]} vs HiGHS {highs_b}: rel {rel}")
+    print(
+        f"[interfaces] (a) cli --disable-bnb on {model_b.nrows}x{model_b.ncols}: PRIMAL "
+        f"{out['PRIMAL']} DUAL {out['DUAL']} vs HiGHS {highs_b:.10f}, ITERATIONS "
+        f"{out['ITERATIONS']}, TIME SOLVER {out['TIME SOLVER']} ms, wall {wall:.3f} s, "
+        f"gram.launches={launches_cli} on {card}"
+    )
+    latency = {}
+    for label, model, ref in (("scpnre class", model_b, highs_b), ("scp4x class", model_a, highs_a)):
+        lp = st.pad_lp(model, device=dev)
+        res, _, launches = counted(f"solve_lp at {label}", lambda: st.solve_lp(lp))
+        check(res.converged, f"solve_lp at {label}: {res.status.name}")
+        rel = abs(res.primal_objective - ref) / abs(ref)
+        check(rel <= 1e-6, f"solve_lp at {label}: {res.primal_objective} vs HiGHS {ref}")
+        st.solve_lp(st.pad_lp(model, device=dev))  # warm-up
+        full, solve = [], []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            st.solve_lp(st.pad_lp(model, device=dev))
+            full.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            st.solve_lp(lp)
+            solve.append(time.perf_counter() - t0)
+        latency[label] = (statistics.median(full), statistics.median(solve), launches)
+        print(
+            f"[interfaces] single-LP latency at {label} ({model.nrows}x{model.ncols}, padded "
+            f"{lp.m_pad}x{lp.n_pad}): solve_lp(pad_lp(model)) {latency[label][0]:.4f} s, "
+            f"solve_lp of a padded LP {latency[label][1]:.4f} s (medians of 5, warm); "
+            f"{res.iterations} iterations, gram.launches={launches}, CONVERGED at "
+            f"{res.primal_objective:.10f} (rel {rel:.2e}) on {card}"
+        )
+    k1_b1 = {}
+    gen = torch.Generator(device=dev).manual_seed(1)
+    for m, n in ((200, 1280), (504, 5504)):
+        A32 = torch.randint(-1, 2, (m, n), generator=gen, device=dev).float()
+        w = 10.0 ** (torch.rand((1, n), generator=gen, device=dev) * 9.0 - 6.0)
+        M = gram_mod.gram(A32, w)
+        err = (M - gram_mod.gram_reference(A32, w)).abs().max().item()
+        scale = gram_mod.gram_reference(A32, w).abs().max().item()
+        check(err <= 1e-5 * scale, f"gram at B=1 ({m}, {n}): {err}")
+        k1_b1[(1, m, n)] = (
+            time_ms(torch, lambda: gram_mod.gram(A32, w)),
+            time_ms(torch, lambda: gram_mod.gram_reference(A32, w)),
+            time_ms(torch, lambda: gram_library_call(torch, A32, w)),
+        )
+        bound, by, bf16 = gram_bound(1, m, n)
+        print(
+            f"[interfaces] gram B=1 m={m} n={n}: kernel {k1_b1[(1, m, n)][0]:.4f} ms, plain "
+            f"{k1_b1[(1, m, n)][1]:.4f} ms, library einsum {k1_b1[(1, m, n)][2]:.4f} ms (medians "
+            f"of 20); bound {bound:.4f} ms ({by}; bf16x6 work {bf16:.4f} ms); max_abs_err vs "
+            f"plain {err:.3e} on {card}"
+        )
+
+    # (b) the CLI as a subprocess on the MILP, with the default device
+    milp_model = st.parse_scp_text(synthetic_scp_text(milp_seed), name=f"syn_scp4x_{milp_seed}")
+    path_a = os.path.join(tmp, "scp4x_class.txt")
+    with open(path_a, "w") as f:
+        f.write(synthetic_scp_text(milp_seed))
+    hook_dir = os.path.join(tmp, "hook")
+    os.mkdir(hook_dir)
+    with open(os.path.join(hook_dir, "sitecustomize.py"), "w") as f:
+        f.write(LAUNCH_HOOK)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(p for p in (hook_dir, env.get("PYTHONPATH")) if p)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "sypha_tpu_torch", "--input-file", path_a, "--verbosity", "0",
+         "--show-solution", "--bnb-hard-time-limit-sec", "120"],
+        capture_output=True, text=True, timeout=300, env=env,
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+    )
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"cli MILP subprocess rc {proc.returncode}: {proc.stderr[-2000:]}")
+    out = cli_lines(proc.stdout)
+    primal = float(out["PRIMAL"])
+    check(abs(primal - milp_opt) <= 1e-6, f"cli MILP PRIMAL {primal} vs scipy {milp_opt}")
+    chosen = [k for k in out if k.startswith("SELECTED COLUMNS")]
+    check(len(chosen) == 1, "cli MILP prints SELECTED COLUMNS")
+    cols = np.asarray(json.loads(out[chosen[0]]), dtype=int)
+    x = np.zeros(milp_model.ncols)
+    x[cols] = 1.0
+    check(bool(np.all(milp_model.dense_matrix() @ x >= 1.0)), "cli MILP selected columns cover every row")
+    check(abs(float(milp_model.costs @ x) - primal) <= 1e-6, "cli MILP cover cost = PRIMAL")
+    hook = [l for l in proc.stderr.splitlines() if l.startswith("GRAM_LAUNCHES ")]
+    check(len(hook) == 1, "cli MILP subprocess reported its gram launches")
+    sub_launches = int(hook[0].split()[1])
+    check(sub_launches > 0, "cli MILP subprocess: gram launched")
+    print(
+        f"[interfaces] (b) python3 -m sypha_tpu_torch (default device) on the MILP: rc 0, PRIMAL "
+        f"{primal} = scipy {milp_opt}, cover of {len(cols)} columns, ITERATIONS "
+        f"{out['ITERATIONS']}, TIME SOLVER {out['TIME SOLVER']} ms, TIME COMPILE "
+        f"{out['TIME COMPILE']} ms, process wall {wall:.3f} s, gram.launches={sub_launches} "
+        f"on {card}"
+    )
+
+    # (c) the Solver, one route per run
+    launches_api = 0
+
+    def solve(label, s):
+        nonlocal launches_api
+        status, wall, launches = counted(label, s.Solve)
+        launches_api += launches
+        print(
+            f"[interfaces] (c) Solver {label}: {status.name} objective {s.objective_value():.10f} "
+            f"dual {s.dual_objective_value():.10f} nodes {s.nodes()} iterations "
+            f"{s.iterations()} compile_time {s.compile_time():.3f} s wall_time "
+            f"{s.wall_time():.3f} s, gram.launches={launches} on {card}"
+        )
+        return status
+
+    s = scp_solver(Solver, dev, model_a, disable_bnb=True)
+    check(solve("LP route, scp4x class", s) == ResultStatus.OPTIMAL, "Solver LP route OPTIMAL")
+    rel = abs(s.objective_value() - highs_a) / abs(highs_a)
+    check(rel <= 1e-6, f"Solver LP route {s.objective_value()} vs HiGHS {highs_a}")
+    s = scp_solver(Solver, dev, milp_model, disable_bnb=False)
+    check(solve("SCP MILP route, scp4x class", s) == ResultStatus.OPTIMAL, "Solver SCP MILP OPTIMAL")
+    check(abs(s.objective_value() - milp_opt) <= 1e-6, f"Solver SCP MILP {s.objective_value()} vs {milp_opt}")
+    s, ref, duals = general_lp(Solver, dev)
+    check(solve("LP route, general rows, maximize + offset", s) == ResultStatus.OPTIMAL, "general LP OPTIMAL")
+    rel = abs(s.objective_value() - ref) / abs(ref)
+    check(rel <= 1e-6, f"general LP objective {s.objective_value()} vs HiGHS {ref}: rel {rel}")
+    got = np.array([c.dual_value() for c in s._constraints])
+    dual_err = float(np.max(np.abs(got - duals)))
+    check(dual_err <= 1e-6, f"general LP constraint duals vs HiGHS: max abs err {dual_err}")
+    print(f"[interfaces] (c) general LP: objective rel {rel:.2e} vs HiGHS, duals max abs err {dual_err:.2e}")
+    for label, build in (("generic binary route, knapsack", knapsack),
+                         ("binarized route, bounded integers", bounded_integers)):
+        s, ref = build(Solver, dev)
+        check(solve(label, s) == ResultStatus.OPTIMAL, f"Solver {label} OPTIMAL")
+        check(abs(s.objective_value() - ref) <= 1e-6, f"Solver {label}: {s.objective_value()} vs scipy {ref}")
+
+    # (d) solve_lp_batch: four instances, 16 lanes each, in one bucket
+    models = [model_a] + [
+        st.parse_scp_text(synthetic_scp_text(seed), name=f"syn_scp4x_{seed}") for seed in (1, 2, 3)
+    ]
+    refs = [highs_a] + [highs_objective(m) for m in models[1:]]
+    lps = [st.pad_lp(m, device=dev) for m in models]
+    stacked = st.stack_lps([lps[lane % 4] for lane in range(64)])
+    engine = driver.mehrotra_solve_shared
+    calls = []
+
+    def counted_engine(batch, *a, **kw):
+        calls.append(batch.n_lanes)
+        return engine(batch, *a, **kw)
+
+    driver.mehrotra_solve_shared = counted_engine
+    try:
+        cold, wall, launches = counted("solve_lp_batch", lambda: st.solve_lp_batch(stacked, as_results=False))
+        results = st.solve_lp_batch(stacked)
+        x0, s0 = cold.x + 0.1, cold.s + 0.1
+        warm, warm_wall, warm_launches = counted(
+            "solve_lp_batch warm", lambda: st.solve_lp_batch(stacked, warm_start=(x0, cold.y, s0))
+        )
+    finally:
+        driver.mehrotra_solve_shared = engine
+    launches_api += launches + warm_launches
+    check(calls[:4] == [16] * 4 and len(calls) == 12, f"solve_lp_batch: one shared call per instance, got {calls}")
+    for lane, (res, w) in enumerate(zip(results, warm)):
+        ref = refs[lane % 4]
+        check(res.converged and w.converged, f"solve_lp_batch lane {lane} CONVERGED")
+        check(abs(res.primal_objective - ref) / abs(ref) <= 1e-6, f"lane {lane}: {res.primal_objective} vs {ref}")
+        check(w.iterations < res.iterations, f"lane {lane}: warm {w.iterations} < cold {res.iterations}")
+    cold_it = sorted({r.iterations for r in results})
+    warm_it = sorted({r.iterations for r in warm})
+    print(
+        f"[interfaces] (d) solve_lp_batch of 64 lanes (4 instances x 16, interleaved, padded "
+        f"{stacked.m_pad}x{stacked.n_pad}): 4 shared calls of 16 lanes, all CONVERGED at their "
+        f"HiGHS optima {[round(r, 6) for r in refs]}; iterations cold {cold_it}, warm from the "
+        f"cold iterates {warm_it}; cold {wall:.3f} s ({launches} gram launches), warm "
+        f"{warm_wall:.3f} s ({warm_launches}) on {card}"
+    )
+    return launches_api, launches_cli, latency, k1_b1
+
+
+def scpnre_text() -> str:
+    from sypha_tpu_torch.testing import synthetic_scp
+
+    return synthetic_scp(500, 5000, 0.10, seed=1)
+
+
+def synthetic_scp_text(seed: int) -> str:
+    from sypha_tpu_torch.testing import synthetic_scp
+
+    return synthetic_scp(200, 1000, 0.02, seed=seed)
 
 
 def main() -> int:
@@ -568,9 +998,24 @@ def main() -> int:
 
     # -- phase 6: MILP, branch and bound -------------------------------------
     timers.start("milp")
-    launches_bnb = milp_phase(torch, st, gram_mod, card)
+    launches_bnb, milp_seed, milp_opt = milp_phase(torch, st, gram_mod, card)
     timers.stop("milp")
+
+    # -- phase 7: the user entry points ---------------------------------------
+    timers.start("interfaces")
+    launches_api, launches_cli, latency, k1_b1 = interfaces_phase(
+        torch, st, gram_mod, dev, card, model_a, highs_a, model_b, milp_seed, milp_opt
+    )
+    timers.stop("interfaces")
     print(timers.report())
+    for label, (full_s, solve_s, k1) in latency.items():
+        print(
+            f"single-LP latency, {label}: {full_s:.4f} s with pad_lp, {solve_s:.4f} s solve only, "
+            f"{k1} gram launches (medians of 5, warm) on {card}"
+        )
+
+    bound_a, bound_by, bf16_a = gram_bound(128, 200, 1280)
+    bound_b, _, bf16_b = gram_bound(64, 504, 5504)
 
     print(json.dumps({"kernels": [{
         "name": "gram",
@@ -581,14 +1026,28 @@ def main() -> int:
         "launches_slice_b": launches_b,
         "launches_ell": launches_ell,
         "launches_bnb": launches_bnb,
+        "launches_api": launches_api,
+        "launches_cli": launches_cli,
         "max_abs_err": kernel_err,
         "ms": times["cell A"][0],
         "plain_ms": times["cell A"][1],
+        "bound_ms": bound_a,
+        "bound_by": bound_by,
+        "library_ms": times["cell A"][2],
         "design": "bf16x6 mma.sync SYRK",
+        "bound_ms_bf16x6": bf16_a,
         "max_entry_rel_err": entry_err,
         "plain_max_entry_rel_err": plain_entry_err,
         "ms_cell_b": times["cell B"][0],
         "plain_ms_cell_b": times["cell B"][1],
+        "bound_ms_cell_b": bound_b,
+        "bound_ms_bf16x6_cell_b": bf16_b,
+        "library_ms_cell_b": times["cell B"][2],
+        **{
+            f"{key}_b1_{label}": k1_b1[(1, m, n)][i]
+            for label, m, n in (("scp4x", 200, 1280), ("scpnre", 504, 5504))
+            for i, key in enumerate(("ms", "plain_ms", "library_ms"))
+        },
     }]}))
     print(card)
     print(json.dumps({

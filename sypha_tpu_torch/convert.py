@@ -16,6 +16,8 @@ from typing import Dict, Type, TypeVar
 import numpy as np
 import torch
 
+from sypha_tpu_torch.core.device import resolve_device
+
 T = TypeVar("T")
 
 
@@ -28,12 +30,14 @@ def to_numpy(obj) -> Dict[str, np.ndarray]:
     return out
 
 
-def from_numpy(cls: Type[T], arrays: Dict[str, np.ndarray], device="cpu") -> T:
-    """Build the port's dataclass ``cls`` from numpy arrays on ``device``."""
+def from_numpy(cls: Type[T], arrays: Dict[str, np.ndarray], device=None) -> T:
+    """Build the port's dataclass ``cls`` from numpy arrays on ``device``
+    (default ``cuda``)."""
     names = [f.name for f in dataclasses.fields(cls)]
     missing = set(names) - set(arrays)
     if missing:
         raise KeyError(f"{cls.__name__} needs fields {sorted(missing)}")
+    device = resolve_device(device)
     return cls(**{
         n: torch.from_numpy(np.array(arrays[n], copy=True)).to(device) for n in names
     })

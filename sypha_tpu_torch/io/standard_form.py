@@ -20,6 +20,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from sypha_tpu_torch.core.device import resolve_device
 from sypha_tpu_torch.core.problem import PaddedLp, ScpModel
 from sypha_tpu_torch.ops.ell import ell_from_rows
 
@@ -89,9 +90,11 @@ def pad_standard_form(
     m_pad: Optional[int] = None,
     n_pad: Optional[int] = None,
     extra_rows: int = 0,
-    device: torch.device | str = "cpu",
+    device: torch.device | str | None = None,
 ) -> PaddedLp:
-    """Pad an explicit standard-form (A, b, c) into a PaddedLp on ``device``."""
+    """Pad an explicit standard-form (A, b, c) into a PaddedLp on ``device``
+    (default ``cuda``; see core.device.resolve_device)."""
+    device = resolve_device(device)
     m, n = A.shape
     auto_mp, auto_np = bucket_dims(m, n, extra_rows=extra_rows)
     mp = m_pad if m_pad is not None else auto_mp
@@ -115,9 +118,11 @@ def pad_lp(
     m_pad: Optional[int] = None,
     n_pad: Optional[int] = None,
     extra_rows: int = 0,
-    device: torch.device | str = "cpu",
+    device: torch.device | str | None = None,
 ) -> PaddedLp:
-    """ScpModel -> padded LP on ``device`` (standard form + bucket padding)."""
+    """ScpModel -> padded LP on ``device`` (standard form + bucket padding),
+    by default the card: ``pad_lp(model, device="cpu")`` for the CPU."""
+    device = resolve_device(device)
     A, b, c = scp_standard_form(model)
     return pad_standard_form(
         A, b, c, n_struct=model.ncols, m_pad=m_pad, n_pad=n_pad,
@@ -132,7 +137,7 @@ def pad_standard_form_ell(
     n_struct: int,
     m_pad: int,
     n_pad: int,
-    device: torch.device | str = "cpu",
+    device: torch.device | str | None = None,
 ) -> PaddedLp:
     """Sparse (padded-ELL) counterpart of pad_standard_form, on ``device``.
 
@@ -141,8 +146,9 @@ def pad_standard_form_ell(
     structural costs [n_struct]; surplus columns cost 0, pad columns 1 (the
     conventions of pad_standard_form).  The dense [m_pad, n_pad] f64 matrix
     never exists: every product on the returned LP goes through the
-    EllMatrix.
+    EllMatrix.  ``device`` defaults to ``cuda``.
     """
+    device = resolve_device(device)
     m = len(row_data)
     n = n_struct + m
     if m_pad < m or n_pad < n:

@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from sypha_tpu_torch.config import IpmOptions
+from sypha_tpu_torch.core.device import resolve_device
 from sypha_tpu_torch.core.problem import PaddedLp
 from sypha_tpu_torch.core.status import IpmStatus
 from sypha_tpu_torch.io.standard_form import bucket_dims, pad_lp, pad_standard_form_ell
@@ -148,15 +149,17 @@ def make_shared_batch_sparse(
     n_lanes: int,
     m_pad: int | None = None,
     n_pad: int | None = None,
-    device: torch.device | str = "cpu",
+    device: torch.device | str | None = None,
 ) -> SharedLpBatch:
-    """ScpModel -> SharedLpBatch whose A is a padded-ELL operator on ``device``.
+    """ScpModel -> SharedLpBatch whose A is a padded-ELL operator on ``device``
+    (default ``cuda``).
 
     Same padding conventions as pad_lp/make_shared_batch (pad columns cost 1
     and masked out; pad rows rhs 0 with row_pad regularisation), but the
     standard form [A0 | -I] is built straight into EllMatrix slots: a dense
     f64 [m_pad, n_pad] matrix never exists.
     """
+    device = resolve_device(device)
     m, n0 = model.nrows, model.ncols
     auto_mp, auto_np = bucket_dims(m, n0 + m)
     rows = [(np.asarray(cols, dtype=np.int32), np.ones(len(cols))) for cols in model.rows]
@@ -175,12 +178,13 @@ def make_shared_batch_auto(
     m_pad: int | None = None,
     n_pad: int | None = None,
     density_threshold: float = 0.05,
-    device: torch.device | str = "cpu",
+    device: torch.device | str | None = None,
 ) -> SharedLpBatch:
     """Operator selection by density: padded ELL at or below
     ``density_threshold`` of the standard form [A0 | -I], dense above.  The
     0.05 crossover is the JAX package's (measured there on a TPU v5e); the
-    port keeps it for parity."""
+    port keeps it for parity.  ``device`` defaults to ``cuda``."""
+    device = resolve_device(device)
     nnz = sum(len(r) for r in model.rows) + model.nrows
     density = nnz / float(model.nrows * (model.ncols + model.nrows))
     if density <= density_threshold:

@@ -24,6 +24,8 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
+from sypha_tpu_torch.core.device import resolve_device
+
 
 @dataclass(frozen=True)
 class EllMatrix:
@@ -111,14 +113,16 @@ def ell_from_rows(
     n_pad: int,
     dtype=np.float32,
     lane_multiple: int = 8,
-    device: torch.device | str = "cpu",
+    device: torch.device | str | None = None,
 ) -> EllMatrix:
     """Build the standard form [A | -I] as an EllMatrix from host row data.
 
     ``rows``: per covering or cut row, (structural column indices, values);
     row i also gets its surplus column ``n_struct + i`` with -1.  The dense
     matrix is never built.  Widths Kr/Kc are rounded up to ``lane_multiple``.
+    The tensors go to ``device`` (default ``cuda``).
     """
+    device = resolve_device(device)
     m = len(rows)
     if n_struct + m > n_pad:
         raise ValueError("n_pad too small for structural + surplus columns")
@@ -155,9 +159,17 @@ def ell_from_rows(
     return _to_device(row_idx, row_val, col_idx, col_val, device)
 
 
-def ell_from_dense(A: np.ndarray, m_pad=None, n_pad=None, lane_multiple: int = 8) -> EllMatrix:
-    """Convert a host dense matrix to an EllMatrix on the CPU (tests and small
-    inputs; no surplus columns added; values keep A's dtype)."""
+def ell_from_dense(
+    A: np.ndarray,
+    m_pad=None,
+    n_pad=None,
+    lane_multiple: int = 8,
+    device: torch.device | str | None = None,
+) -> EllMatrix:
+    """Convert a host dense matrix to an EllMatrix on ``device`` (default
+    ``cuda``; tests and small inputs; no surplus columns added; values keep
+    A's dtype)."""
+    device = resolve_device(device)
     A = np.asarray(A)
     m, n = A.shape
     m_pad = m_pad or m
@@ -180,4 +192,4 @@ def ell_from_dense(A: np.ndarray, m_pad=None, n_pad=None, lane_multiple: int = 8
         idx = np.flatnonzero(A[:, j])
         col_idx[j, : len(idx)] = idx
         col_val[j, : len(idx)] = A[idx, j]
-    return _to_device(row_idx, row_val, col_idx, col_val, "cpu")
+    return _to_device(row_idx, row_val, col_idx, col_val, device)

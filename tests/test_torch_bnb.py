@@ -101,7 +101,7 @@ def test_node_solver_windows_match_jax(operator):
     jm, tm = _models(nrows, ncols, costs, rows)
     jcfg, tcfg = _configs(node_operator=operator, node_batch=8)
     jsolver = JNodeLpSolver(jbm.BaseModel(jm), jcfg, JLogger(verbosity=0))
-    tsolver = TNodeLpSolver(tbm.BaseModel(tm), tcfg, TLogger(verbosity=0))
+    tsolver = TNodeLpSolver(tbm.BaseModel(tm), tcfg, TLogger(verbosity=0), device="cpu")
 
     def nodes(bm):
         root = bm.BranchNode()
@@ -134,7 +134,7 @@ def test_bnb_matches_jax_and_scipy(name):
     jm, tm = _models(*INSTANCES[name](), name=name)
     expected = _milp_optimum(tm)
     jcfg, tcfg = _configs()
-    _check_optimal(tbnb(tm, tcfg), tm, expected)
+    _check_optimal(tbnb(tm, tcfg, device="cpu"), tm, expected)
     _check_optimal(jbnb(jm, jcfg), tm, expected)
 
 
@@ -147,7 +147,7 @@ def test_bnb_branches_on_a_root_gap():
     jcfg, tcfg = _configs(exact_closure=False, cuts_enabled=False)
     failed = TNodeLpSolver.window_stats["failed"]
     for bnb, cfg in ((tbnb, tcfg), (jbnb, jcfg)):
-        r = bnb(jm if bnb is jbnb else tm, cfg)
+        r = bnb(jm, cfg) if bnb is jbnb else bnb(tm, cfg, device="cpu")
         _check_optimal(r, tm, expected)
         assert r.nodes_processed > 0, r
         assert r.total_lp_iterations > 0, r
@@ -159,9 +159,9 @@ def test_mesh_raises_not_implemented():
     _, tm = _models(*_from_text(TINY))
     _, tcfg = _configs(mesh_devices=2)
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        tbnb(tm, tcfg)
+        tbnb(tm, tcfg, device="cpu")
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        tbnb(tm, tconfig.SolverConfig(verbosity=0), mesh=object())
+        tbnb(tm, tconfig.SolverConfig(verbosity=0), mesh=object(), device="cpu")
 
 
 def test_device_loss_degrades_windows(monkeypatch):
@@ -170,7 +170,7 @@ def test_device_loss_degrades_windows(monkeypatch):
     propagates."""
     _, tm = _models(*_from_text(TINY))
     _, tcfg = _configs()
-    solver = TNodeLpSolver(tbm.BaseModel(tm), tcfg, TLogger(verbosity=0))
+    solver = TNodeLpSolver(tbm.BaseModel(tm), tcfg, TLogger(verbosity=0), device="cpu")
     nodes = [tbm.BranchNode(), tbm.BranchNode().child(0, 1)]
 
     def fail(msg):

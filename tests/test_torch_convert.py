@@ -47,8 +47,8 @@ def test_from_numpy_names_missing_fields():
 
 def test_port_resumes_jax_state(jax_objects):
     _, jbatch, jmid, jfull = jax_objects
-    batch = from_numpy(SharedLpBatch, to_numpy(jbatch))
-    state0 = from_numpy(IpmState, to_numpy(jmid))
+    batch = from_numpy(SharedLpBatch, to_numpy(jbatch), device="cpu")
+    state0 = from_numpy(IpmState, to_numpy(jmid), device="cpu")
     opts = tconfig.IpmOptions()
     st = mehrotra_solve_shared(batch, opts, state0=state0, iter_limit=opts.max_iter)
     np.testing.assert_array_equal(st.status.numpy(), np.asarray(jfull.status))

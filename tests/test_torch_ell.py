@@ -62,12 +62,12 @@ def _ell_pair(kind):
     if kind == "rows_with_cuts":
         rows = _rows_with_cuts()
         args = dict(n_struct=30, m_pad=24, n_pad=128)
-        return tell.ell_from_rows(rows, **args), jell.ell_from_rows(rows, **args)
+        return tell.ell_from_rows(rows, **args, device="cpu"), jell.ell_from_rows(rows, **args)
     rng = np.random.default_rng(3)
     A = rng.integers(-3, 4, (20, 50)).astype(np.float64)
     A[rng.random(A.shape) < 0.7] = 0.0
     args = dict(m_pad=24, n_pad=64)
-    return tell.ell_from_dense(A, **args), jell.ell_from_dense(A, **args)
+    return tell.ell_from_dense(A, **args, device="cpu"), jell.ell_from_dense(A, **args)
 
 
 @pytest.mark.parametrize("kind", ["rows_with_cuts", "dense_signed"])
@@ -95,7 +95,7 @@ def test_ell_builders_match_jax():
     rows = _rows_with_cuts(seed=2)
     rhs = np.arange(1.0, len(rows) + 1)
     costs = np.arange(30.0) + 1.0
-    tlp = tsf.pad_standard_form_ell(rows, rhs, costs, n_struct=30, m_pad=24, n_pad=128)
+    tlp = tsf.pad_standard_form_ell(rows, rhs, costs, n_struct=30, m_pad=24, n_pad=128, device="cpu")
     jlp = jsf.pad_standard_form_ell(rows, rhs, costs, n_struct=30, m_pad=24, n_pad=128)
     _assert_ell_equal(tlp.A, jlp.A)
     for f in ("b", "c", "row_pad", "m_real", "n_real", "n_struct"):
@@ -115,7 +115,7 @@ def test_ell_slice_matches_jax_and_dense(name):
     text = TEXTS[name]()
     tmodel = treader.parse_scp_text(text)
     jb = jshared.make_shared_batch_sparse(jreader.parse_scp_text(text), 3)
-    tb = tshared.make_shared_batch_sparse(tmodel, 3)
+    tb = tshared.make_shared_batch_sparse(tmodel, 3, device="cpu")
     assert tb.is_sparse and jb.is_sparse
     _assert_ell_equal(tb.A, jb.A)
     js = jshared.mehrotra_solve_shared(jb, jconfig.IpmOptions())
@@ -131,7 +131,7 @@ def test_ell_slice_matches_jax_and_dense(name):
     np.testing.assert_allclose(td, jd, rtol=1e-8)
 
     # the port's dense operator on the same bucket
-    db = tshared.make_shared_batch(tsf.pad_lp(tmodel, m_pad=tb.m_pad, n_pad=tb.n_pad), 3)
+    db = tshared.make_shared_batch(tsf.pad_lp(tmodel, m_pad=tb.m_pad, n_pad=tb.n_pad, device="cpu"), 3)
     ds = tshared.mehrotra_solve_shared(db, tconfig.IpmOptions())
     np.testing.assert_array_equal(ds.status.numpy(), ts.status.numpy())
     assert np.abs(ds.iterations.numpy() - ts.iterations.numpy()).max() <= 1
@@ -141,7 +141,7 @@ def test_ell_slice_matches_jax_and_dense(name):
 
 def test_make_shared_batch_auto_picks_like_jax():
     for text, sparse in ((synthetic_scp(40, 200, 0.02, 5), True), (synthetic_scp(24, 120, 0.1, 3), False)):
-        tb = tshared.make_shared_batch_auto(treader.parse_scp_text(text), 2)
+        tb = tshared.make_shared_batch_auto(treader.parse_scp_text(text), 2, device="cpu")
         jb = jshared.make_shared_batch_auto(jreader.parse_scp_text(text), 2)
         assert tb.is_sparse == jb.is_sparse == sparse
         for f in ("b", "c", "col_mask", "row_pad", "obj_offset"):
@@ -156,7 +156,7 @@ def test_ell_node_window_matches_jax():
     rows = [(np.asarray(r, np.int32), np.ones(len(r))) for r in model.rows]
     args = dict(n_struct=model.ncols, m_pad=48, n_pad=256)
     rhs = np.ones(model.nrows)
-    tlp = tsf.pad_standard_form_ell(rows, rhs, model.costs, **args)
+    tlp = tsf.pad_standard_form_ell(rows, rhs, model.costs, **args, device="cpu")
     jlp = jsf.pad_standard_form_ell(rows, rhs, model.costs, **args)
     rng = np.random.default_rng(0)
     B = 4

@@ -110,7 +110,7 @@ TEXTS = {
 def test_slice_with_bf16x6_gram_matches_jax(name, monkeypatch):
     text = TEXTS[name]()
     jb = jshared.make_shared_batch(jsf.pad_lp(jreader.parse_scp_text(text)), 4)
-    tb = tshared.make_shared_batch(tsf.pad_lp(treader.parse_scp_text(text)), 4)
+    tb = tshared.make_shared_batch(tsf.pad_lp(treader.parse_scp_text(text), device="cpu"), 4)
     calls = []
 
     def counted(A32, w):

@@ -73,7 +73,7 @@ def test_pad_lp_matches_jax(name, pad):
     if "m_pad" in pad and tm.nrows > pad["m_pad"]:
         pytest.skip("instance larger than the fixed bucket")
     jlp = jsf.pad_lp(jreader.parse_scp_text(text), **pad)
-    tlp = tsf.pad_lp(tm, **pad)
+    tlp = tsf.pad_lp(tm, **pad, device="cpu")
     assert tlp.A.device.type == "cpu"
     _same_lp(jlp, tlp)
 
@@ -81,17 +81,17 @@ def test_pad_lp_matches_jax(name, pad):
 def test_pad_lp_too_small_raises():
     tm = treader.parse_scp_text(TINY)
     with pytest.raises(ValueError):
-        tsf.pad_lp(tm, m_pad=2)
+        tsf.pad_lp(tm, m_pad=2, device="cpu")
 
 
 def test_stack_lps_matches_jax():
     texts = [TINY, (DATA / "demo_small.txt").read_text()]
     jlps = [jsf.pad_lp(jreader.parse_scp_text(t), m_pad=8, n_pad=128) for t in texts]
-    tlps = [tsf.pad_lp(treader.parse_scp_text(t), m_pad=8, n_pad=128) for t in texts]
+    tlps = [tsf.pad_lp(treader.parse_scp_text(t), m_pad=8, n_pad=128, device="cpu") for t in texts]
     _same_lp(jsf.stack_lps(jlps), tsf.stack_lps(tlps))
     assert tsf.stack_lps(tlps).batch_shape == (2,)
     with pytest.raises(ValueError):
-        tsf.stack_lps([tlps[0], tsf.pad_lp(treader.parse_scp_text(TINY), m_pad=16)])
+        tsf.stack_lps([tlps[0], tsf.pad_lp(treader.parse_scp_text(TINY), m_pad=16, device="cpu")])
 
 
 @pytest.mark.parametrize(
@@ -126,3 +126,44 @@ def test_synthetic_scp_follows_orlib_generator(nrows, ncols, density, seed):
     assert np.all(model.costs == np.round(model.costs))
     # the repairs add few entries beyond the sampled density
     assert cover.mean() <= density + 2.0 / ncols + 1.0 / nrows
+
+
+@pytest.mark.parametrize("name", ["tiny", "demo_small", "syn24x120"])
+def test_orlib_round_trip_matches_jax(tmp_path, name):
+    import sypha_tpu.io.orlib as jorlib
+    import sypha_tpu_torch.io.orlib as torlib
+
+    path = tmp_path / f"{name}.txt"
+    path.write_text(TEXTS[name]())
+    parsed = torlib.parse_scp_file(str(path))
+    assert parsed == jorlib.parse_scp_file(str(path))
+    _same_model(jorlib.orlib_to_model(parsed, name=name), torlib.orlib_to_model(parsed, name=name))
+    _same_model(treader.read_scp_file(str(path)), torlib.orlib_to_model(parsed, name=path.stem))
+
+
+@pytest.mark.parametrize("kind", ["numpy", "tensor"])
+def test_debug_printers_match_jax(kind):
+    import io
+
+    import sypha_tpu.utils.debug as jdebug
+    import sypha_tpu_torch.utils.debug as tdebug
+
+    rng = np.random.default_rng(5)
+    M = rng.normal(size=(20, 18))
+    M[0, :3] = [1e-21, -1e-25, 0.0]  # under the zero clamp
+    v = np.concatenate([[1e-30, -2e-21], rng.normal(size=40)])
+    arg = (lambda a: a) if kind == "numpy" else torch.from_numpy
+    for printer, data, kw in (
+        ("print_mat", M, {"name": "M"}),
+        ("print_mat", M[:4, :5], {}),
+        ("print_vec", v, {"name": "v"}),
+        ("print_vec", v[:5], {}),
+    ):
+        t, j = io.StringIO(), io.StringIO()
+        getattr(tdebug, printer)(arg(data), file=t, **kw)
+        getattr(jdebug, printer)(data, file=j, **kw)
+        assert t.getvalue() == j.getvalue(), printer
+    # the values under the clamp print as 0
+    out = io.StringIO()
+    tdebug.print_vec(arg(v[:3]), file=out)
+    assert out.getvalue().split()[:2] == ["0", "0"]

@@ -34,7 +34,7 @@ TEXTS = {
 def _batches(name, B=4):
     text = TEXTS[name]()
     jb = jshared.make_shared_batch(jsf.pad_lp(jreader.parse_scp_text(text)), B)
-    tb = tshared.make_shared_batch(tsf.pad_lp(treader.parse_scp_text(text)), B)
+    tb = tshared.make_shared_batch(tsf.pad_lp(treader.parse_scp_text(text), device="cpu"), B)
     return jb, tb
 
 
@@ -80,14 +80,14 @@ def test_sparse_operator_is_not_ported_yet():
     (TINY's standard form is 7/21 = 33% dense, so ``_auto`` picks dense)."""
     model = treader.parse_scp_text(TINY)
     jmodel = jreader.parse_scp_text(TINY)
-    tb = tshared.make_shared_batch_sparse(model, 2)
+    tb = tshared.make_shared_batch_sparse(model, 2, device="cpu")
     jb = jshared.make_shared_batch_sparse(jmodel, 2)
     assert tb.is_sparse and jb.is_sparse
     np.testing.assert_array_equal(tb.A.todense().numpy(), np.asarray(jb.A.todense()))
     for f in ("b", "c", "col_mask", "row_pad", "obj_offset"):
         np.testing.assert_array_equal(getattr(tb, f).numpy(), np.asarray(getattr(jb, f)), err_msg=f)
-    assert not tshared.make_shared_batch_auto(model, 2).is_sparse
-    assert tshared.make_shared_batch_auto(model, 2, density_threshold=0.5).is_sparse
+    assert not tshared.make_shared_batch_auto(model, 2, device="cpu").is_sparse
+    assert tshared.make_shared_batch_auto(model, 2, density_threshold=0.5, device="cpu").is_sparse
 
 
 def test_initial_point_matches_jax():
@@ -136,7 +136,7 @@ def test_slice_matches_highs():
 
     text = TEXTS["syn40x200"]()
     model = treader.parse_scp_text(text)
-    tb = tshared.make_shared_batch(tsf.pad_lp(model), 3)
+    tb = tshared.make_shared_batch(tsf.pad_lp(model, device="cpu"), 3)
     ts = tshared.mehrotra_solve_shared(tb, tconfig.IpmOptions())
     assert np.all(ts.status.numpy() == IpmStatus.CONVERGED)
     res = linprog(

@@ -35,7 +35,7 @@ def _fixings(model, n_pad, B=4, seed=0):
 
 def _setup():
     tm = treader.parse_scp_text(TEXT)
-    tlp = tsf.pad_lp(tm)
+    tlp = tsf.pad_lp(tm, device="cpu")
     jlp = jsf.pad_lp(jreader.parse_scp_text(TEXT))
     fix0, fix1 = _fixings(tm, tlp.n_pad)
     return tm, tlp, jlp, fix0, fix1

@@ -83,7 +83,7 @@ def test_block_chol_inverse_f64_matches_jax(m):
 def _ipm_like_f32(rng, nrows, spread):
     """Equilibrated f32 normal matrices of an SCP standard form with a
     spread column scaling and the 2e-6 ridge, as _shared_factor builds them."""
-    lp = pad_lp(parse_scp_text(synthetic_scp(nrows, 5 * nrows, 0.1, 7)))
+    lp = pad_lp(parse_scp_text(synthetic_scp(nrows, 5 * nrows, 0.1, 7)), device="cpu")
     A = lp.A.numpy().astype(np.float32)
     m, n = A.shape
     w = np.sqrt(10.0 ** rng.uniform(-spread, spread, (3, n))).astype(np.float32)

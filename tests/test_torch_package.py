@@ -73,3 +73,91 @@ def test_chip_smoke_alone_exits_nonzero(tmp_path):
     )
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
+
+
+def test_no_entry_point_picks_the_cpu_by_itself():
+    """Where a device is not given, the port uses ``cuda``; no source chooses
+    the CPU because the card is missing."""
+    for path in sorted(PORT.rglob("*.py")):
+        assert "is_available() else" not in path.read_text(), path
+
+
+@pytest.fixture
+def no_card():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA card: the default device exists")
+
+
+def _tiny_model():
+    from sypha_tpu_torch.io.scp_reader import parse_scp_text
+
+    return parse_scp_text("3 4\n2 3 4 5\n2 1 2\n2 2 3\n3 1 3 4\n")
+
+
+def test_resolve_device():
+    from sypha_tpu_torch.core.device import resolve_device
+
+    assert resolve_device("cpu") == torch.device("cpu")
+    assert resolve_device(torch.device("cpu")) == torch.device("cpu")
+
+
+@pytest.fixture
+def cpu_forbidden(monkeypatch):
+    """Make the first step of each solve route raise if it is reached, so a
+    test can show that a missing card stops the route before any work."""
+    import sypha_tpu_torch.api as api
+    import sypha_tpu_torch.io.standard_form as sf
+    import sypha_tpu_torch.milp.bnb as bnb
+
+    def ran(*a, **kw):
+        raise AssertionError("ran on the CPU")
+
+    monkeypatch.setattr(sf, "scp_standard_form", ran)
+    monkeypatch.setattr(bnb, "_branch_and_bound", ran)
+    monkeypatch.setattr(api.Solver, "_build_standard_form", ran)
+
+
+@pytest.mark.parametrize(
+    "entry",
+    ["resolve_device", "pad_lp", "pad_standard_form", "pad_standard_form_ell", "ell_from_rows",
+     "ell_from_dense", "make_shared_batch_sparse", "make_shared_batch_auto", "branch_and_bound",
+     "Solver"],
+)
+def test_entry_point_without_a_card_raises(no_card, cpu_forbidden, entry):
+    import numpy as np
+
+    import sypha_tpu_torch.io.standard_form as sf
+    from sypha_tpu_torch import api, config
+    from sypha_tpu_torch.core.device import resolve_device
+    from sypha_tpu_torch.ipm import shared
+    from sypha_tpu_torch.milp.bnb import branch_and_bound
+    from sypha_tpu_torch.ops import ell
+
+    model = _tiny_model()
+    rows = [(np.asarray(r, np.int32), np.ones(len(r))) for r in model.rows]
+    calls = {
+        "resolve_device": lambda: resolve_device(),
+        "pad_lp": lambda: sf.pad_lp(model),
+        "pad_standard_form": lambda: sf.pad_standard_form(np.eye(2), np.ones(2), np.ones(2), n_struct=2),
+        "pad_standard_form_ell": lambda: sf.pad_standard_form_ell(
+            rows, np.ones(3), model.costs, n_struct=4, m_pad=8, n_pad=128),
+        "ell_from_rows": lambda: ell.ell_from_rows(rows, n_struct=4, m_pad=8, n_pad=128),
+        "ell_from_dense": lambda: ell.ell_from_dense(np.eye(3)),
+        "make_shared_batch_sparse": lambda: shared.make_shared_batch_sparse(model, 2),
+        "make_shared_batch_auto": lambda: shared.make_shared_batch_auto(model, 2),
+        "branch_and_bound": lambda: branch_and_bound(model, config.SolverConfig(verbosity=0)),
+        "Solver": lambda: api.Solver().Solve(),
+    }
+    with pytest.raises(RuntimeError, match="no CUDA device.*device=\"cpu\""):
+        calls[entry]()
+
+
+def test_cli_without_a_card_fails_before_solving(no_card, cpu_forbidden, tmp_path, capsys):
+    from sypha_tpu_torch import cli
+
+    path = tmp_path / "tiny.txt"
+    path.write_text("3 4\n2 3 4 5\n2 1 2\n2 2 3\n3 1 3 4\n")
+    assert cli.main(["--input-file", str(path)]) != 0
+    out, err = capsys.readouterr()
+    assert "PRIMAL:" not in out
+    assert "no CUDA device" in err and "--device cpu" in err
