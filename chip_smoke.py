@@ -9,8 +9,10 @@ checkout.  Phases, each printed as it runs:
   1. device: card name and power limit, precision flags, build of the Gram
      kernel from sypha_tpu_torch/csrc/gram.cu;
   2. kernel: the Gram kernel against its plain PyTorch version and an f64
-     Gram at four shapes (the last with w over the IPM's full clamp range),
-     per entry against |Aw| |Aw|^T, for bit symmetry, with CUDA-event times;
+     Gram at seven shapes (one with w over the IPM's full clamp range; the
+     last three are the column slabs of phase 8's tensor-parallel ranks and
+     the whole scpnrg-class matrix), per entry against |Aw| |Aw|^T, for bit
+     symmetry, with CUDA-event times;
   3. slice A: 128 lanes of a seeded scp4x-class LP (200 x 1000, 2%) through
      the reader, pad_lp, make_shared_batch and mehrotra_solve_shared, checked
      against HiGHS, then again with the plain Gram for comparison;
@@ -35,16 +37,31 @@ checkout.  Phases, each printed as it runs:
      (objective and duals against HiGHS), a knapsack (generic binary) and
      bounded general integers (binarized), against scipy; (d)
      solve_lp_batch over four instances in one 64-lane bucket, one shared
-     call per instance, then warm-started from the cold iterates.
+     call per instance, then warm-started from the cold iterates;
+  8. multi-device, on the one card: (a) slice B's window through
+     solve_node_batch_sharded on a mesh of two shards of cuda:0, bit for bit
+     its two halves solved alone, four lanes against HiGHS, K1 launched in
+     both shard threads; slice A through solve_shared_batch_sharded, its
+     pooled statistics against the gathered state; (c) phase 6's B&B with
+     closure and cuts off over that mesh, OPTIMAL at the optimum after
+     branching; then two spawned processes sharing the card in one gloo
+     group: (b) the tensor-parallel IPM on the scpnre-class LP (2 lanes,
+     5504 = 2 x 2752 columns) and the scpnrg-class LP (1000 x 10000, 2%,
+     padded 1024 x 11264) on the dense and the ELL operator, against the
+     unsharded solve on the card and HiGHS, K1 launched on each rank; (d)
+     branch_and_bound in both processes on a planted instance, pooling
+     through the BoundPool: both end at 101, rank 1 by the pooled incumbent.
 
 Any failed check raises, and the script exits non-zero; without a CUDA card
 it exits non-zero before doing anything.  The last line is the JSON status
 object and the line before it the card's name and power limit; the line
 before that lists each kernel with its launch count in the slices (slice A
-as ``launches``, then slices B and C, the B&B, the API and the in-process
-CLI run), its error against the plain version, its times against the plain
-version and the one-call library einsum, and its bound (the larger of the
-f32 SYRK's FLOPs over the f32 peak and its bytes over HBM bandwidth).
+as ``launches``, then slices B and C, the B&B, the API, the in-process
+CLI run, the lane-sharded legs and the tensor-parallel ranks), its error
+against the plain version, its times against the plain version and the
+one-call library einsum, and its bound (the larger of the f32 SYRK's FLOPs
+over the f32 peak and its bytes over HBM bandwidth), at the batched shapes
+and at the slab shapes.
 """
 
 from __future__ import annotations
@@ -127,6 +144,9 @@ def kernel_phase(torch, gram_mod, dev, card):
         (64, 504, 5504, "cell B"),
         (3, 37, 301, "ragged"),
         (64, 504, 5504, "full range"),
+        (2, 504, 2752, "slab scpnre"),
+        (1, 1024, 5632, "slab scpnrg"),
+        (1, 1024, 11264, "scpnrg"),
     )
     for B, m, n, label in shapes:
         A32 = torch.randint(-1, 2, (m, n), generator=gen, device=dev).float()
@@ -795,10 +815,302 @@ def interfaces_phase(torch, st, gram_mod, dev, card, model_a, highs_a, model_b, 
     return launches_api, launches_cli, latency, k1_b1
 
 
+def planted_model(st):
+    """The planted instance of the JAX package's two-process B&B test: the
+    optimum {col0, col1} (two disjoint 30-row halves, 50.5 each, 101.0) is
+    unreachable by ratio-greedy moves, and non-integral costs keep the exact
+    closure and the ceil tightening out of play."""
+    import numpy as np
+
+    m = 60
+    cover_of_col = [set(range(0, m, 2)), set(range(1, m, 2))]
+    costs = [50.5, 50.5]
+    for s in range(0, m, 4):
+        cover_of_col.append({(s + i) % m for i in range(15)})
+        costs.append(21.7)
+    rows = [
+        np.asarray([j for j, cov in enumerate(cover_of_col) if i in cov], dtype=np.int32)
+        for i in range(m)
+    ]
+    return st.ScpModel(
+        nrows=m, ncols=len(costs), costs=np.asarray(costs, dtype=np.float64), rows=rows,
+        name="planted2proc",
+    )
+
+
+def tp_lps(st, dev):
+    """Phase 8 (b)'s LPs: (label, model, whole batch on ``dev``)."""
+    nre = st.parse_scp_text(scpnre_text(), name="syn_scpnre")
+    nrg = st.parse_scp_text(scpnrg_text(), name="syn_scpnrg")
+    return [
+        ("scpnre dense", nre, st.make_shared_batch(st.pad_lp(nre, device=dev), 2)),
+        ("scpnrg dense", nrg, st.make_shared_batch(st.pad_lp(nrg, m_pad=1024, n_pad=11264, device=dev), 1)),
+        ("scpnrg ell", nrg, st.make_shared_batch_sparse(nrg, 1, m_pad=1024, n_pad=11264, device=dev)),
+    ]
+
+
+def rank_legs():
+    """Phase 8 (b) and (d) on one rank of a two-process gloo group whose
+    ranks share the card (parallel.distributed.run_spmd spawns it).
+
+    (b) the tensor-parallel solve of each of ``tp_lps`` (after a warm-up on a
+    tiny LP); (d) branch_and_bound on the planted instance, rank 0 seeded
+    with the optimal incumbent, rank 1 crippled so that it can reach 101 only
+    through the pooled incumbent.  Returns picklable results."""
+    import io
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    import sypha_tpu_torch as st
+    from sypha_tpu_torch.config import BnbOptions
+    from sypha_tpu_torch.ops import gram as gram_mod
+    from sypha_tpu_torch.parallel import solve_shared_batch_tensor_parallel
+    from sypha_tpu_torch.utils.logging import Logger
+
+    rank = dist.get_rank()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    tiny = st.parse_scp_text("3 4\n2 3 4 5\n2 1 2\n2 2 3\n3 1 3 4\n")
+    solve_shared_batch_tensor_parallel(st.make_shared_batch(st.pad_lp(tiny, device=dev), 2))
+    out = {"tp": []}
+    for label, model, batch in tp_lps(st, dev):
+        n_real = model.ncols + model.nrows
+        gram_mod.gram.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s = solve_shared_batch_tensor_parallel(batch, st.IpmOptions())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        out["tp"].append({
+            "label": label,
+            "wall": wall,
+            "launches": gram_mod.gram.launches,
+            "status": s.status.cpu().tolist(),
+            "iterations": s.iterations.cpu().tolist(),
+            "gap": s.gap.cpu().tolist(),
+            "pobj": torch.sum(batch.c[:, :n_real] * s.x[:, :n_real], dim=-1).cpu().tolist(),
+            "y": s.y.cpu().numpy(),
+        })
+
+    model = planted_model(st)
+    if rank == 0:
+        cfg = st.SolverConfig(verbosity=3, bnb=BnbOptions(hard_time_limit_sec=30.0, node_batch=8))
+        x = np.zeros(model.ncols)
+        x[0] = x[1] = 1.0
+        warm = (x, 101.0)
+    else:
+        cfg = st.SolverConfig(verbosity=3, bnb=BnbOptions(
+            hard_time_limit_sec=30.0, node_batch=8, int_heuristics="none", lagrangian_samples=0,
+            cut_rounds_root=0, compact_resolve=False, core_time_frac=0.0,
+        ))
+        warm = None
+    log = io.StringIO()
+    gram_mod.gram.launches = 0
+    t0 = time.perf_counter()
+    res = st.branch_and_bound(model, cfg, Logger(verbosity=3, stream=log), warm_incumbent=warm)
+    out["bnb"] = {
+        "line": f"PRIMAL {res.objective:.6f} STATUS {res.status.name} SRC {res.incumbent_source}",
+        "pooled": "Pooled remote incumbent: 101" in log.getvalue(),
+        "wall": time.perf_counter() - t0,
+        "launches": gram_mod.gram.launches,
+    }
+    return out
+
+
+def multi_device_phase(torch, st, gram_mod, shared, card, batch_a, highs_a, n_real_a,
+                       model_b, lp_b, fix0, fix1, node_opts, refs_b, milp_model, milp_opt):
+    """Phase 8: the multi-device paths on the one card.
+
+    Returns (K1 launches of the lane-sharded legs (a) and (c), K1 launches of
+    the tensor-parallel ranks (b), {label: wall s} of every leg)."""
+    import collections
+    import threading
+
+    import numpy as np
+
+    from sypha_tpu_torch.parallel import (
+        make_mesh,
+        pooled_stats,
+        run_spmd,
+        solve_shared_batch_sharded,
+    )
+    from sypha_tpu_torch.parallel.mesh import solve_node_batch_sharded
+
+    mesh = make_mesh(devices=["cuda:0", "cuda:0"])
+    walls = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st.solve_node_batch(lp_b, fix0, fix1, node_opts)  # slice B's window, unsharded and warm
+    torch.cuda.synchronize()
+    walls["window unsharded"] = time.perf_counter() - t0
+
+    # (a) slice B's window on two shards of the card, each on a host thread
+    per_thread = collections.Counter()
+    real_gram = shared.gram
+
+    def counting_gram(A32, w):
+        per_thread[threading.get_ident()] += 1
+        return real_gram(A32, w)
+
+    gram_mod.gram.launches = 0
+    shared.gram = counting_gram
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st_sh, x_sh, p_sh, d_sh = solve_node_batch_sharded(lp_b, fix0, fix1, node_opts, mesh)
+        torch.cuda.synchronize()
+        walls["window sharded"] = time.perf_counter() - t0
+    finally:
+        shared.gram = real_gram
+    launches_window = gram_mod.gram.launches
+    check(
+        len(per_thread) == 2 and min(per_thread.values()) > 0
+        and sum(per_thread.values()) == launches_window,
+        f"K1 launched in both shard threads: {dict(per_thread)}, total {launches_window}",
+    )
+    t0 = time.perf_counter()
+    halves = [st.solve_node_batch(lp_b, fix0[sl], fix1[sl], node_opts) for sl in (slice(0, 32), slice(32, 64))]
+    torch.cuda.synchronize()
+    walls["window halves in turn"] = time.perf_counter() - t0
+    for name in ("x", "y", "s", "mu", "gap", "iterations", "status"):
+        check(
+            torch.equal(getattr(st_sh, name), torch.cat([getattr(h[0], name) for h in halves])),
+            f"sharded window {name} equals its halves solved alone",
+        )
+    for i, got in enumerate((x_sh, p_sh, d_sh)):
+        check(torch.equal(got, torch.cat([h[i + 1] for h in halves])), "sharded window x_full/pobj/dobj")
+    status = st_sh.status.cpu().numpy()
+    pobj = p_sh.cpu().numpy()
+    for lane, ref in refs_b.items():
+        conv = status[lane] == st.IpmStatus.CONVERGED
+        if ref is None:
+            check(not conv, f"sharded lane {lane}: HiGHS infeasible but CONVERGED")
+        elif conv:
+            check(abs(pobj[lane] - ref) <= 1e-6 * abs(ref), f"sharded lane {lane}: {pobj[lane]} vs HiGHS {ref}")
+    counts = {st.IpmStatus(v).name: int((status == v).sum()) for v in np.unique(status)}
+    print(
+        f"[multi] (a) slice B window on 2 shards of cuda:0: statuses {counts}, bit for bit its "
+        f"two 32-lane halves solved alone; lanes {sorted(refs_b)} agree with HiGHS; "
+        f"gram.launches={launches_window} ({sorted(per_thread.values())} per shard thread); "
+        f"sharded {walls['window sharded']:.4f} s, halves in turn "
+        f"{walls['window halves in turn']:.4f} s, unsharded {walls['window unsharded']:.4f} s on {card}"
+    )
+
+    before = gram_mod.gram.launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, stats = solve_shared_batch_sharded(batch_a, st.IpmOptions(), mesh)
+    torch.cuda.synchronize()
+    walls["slice A sharded"] = time.perf_counter() - t0
+    launches_a = gram_mod.gram.launches - before
+    gathered = pooled_stats([state])
+    check(all(torch.equal(a, b) for a, b in zip(stats[:3], gathered)), "pooled stats = gathered state's")
+    min_dual = torch.amin(torch.sum(batch_a.b * state.y, dim=-1) + batch_a.obj_offset)
+    check(torch.equal(stats[3], min_dual), "pooled min dual = gathered state's")
+    check(int(stats[2]) == 128, f"slice A sharded: {int(stats[2])} of 128 CONVERGED")
+    obj = torch.sum(batch_a.c[:, :n_real_a] * state.x[:, :n_real_a], dim=-1).cpu().numpy()
+    rel = np.max(np.abs(obj - highs_a)) / abs(highs_a)
+    check(rel <= 1e-6, f"slice A sharded vs HiGHS: rel {rel}")
+    check(launches_a > 0, "gram launched in sharded slice A")
+    print(
+        f"[multi] (a) slice A (128 lanes) on 2 shards: pooled (worst gap, max iterations, "
+        f"converged, min dual) = ({float(stats[0]):.3e}, {int(stats[1])}, {int(stats[2])}, "
+        f"{float(stats[3]):.10f}) = the gathered state's; objective max rel {rel:.2e} vs HiGHS; "
+        f"gram.launches={launches_a}; {walls['slice A sharded']:.4f} s on {card}"
+    )
+
+    # (c) the B&B with every node window on the 2-shard mesh
+    cfg = st.SolverConfig(verbosity=3)
+    cfg = cfg.replace(bnb=cfg.bnb.replace(
+        hard_time_limit_sec=120.0, exact_closure=False, cuts_enabled=False, max_nodes=192,
+    ))
+    before = gram_mod.gram.launches
+    t0 = time.perf_counter()
+    r = st.branch_and_bound(milp_model, cfg, mesh=mesh)
+    torch.cuda.synchronize()
+    walls["mesh B&B"] = time.perf_counter() - t0
+    launches_bnb = gram_mod.gram.launches - before
+    check(r.status == st.MilpStatus.OPTIMAL, f"mesh B&B status {r.status.name}")
+    check(abs(r.objective - milp_opt) <= 1e-6, f"mesh B&B objective {r.objective} vs {milp_opt}")
+    check(r.nodes_processed > 0, "mesh B&B branches")
+    check(launches_bnb > 0, "gram launched in the mesh B&B")
+    print(
+        f"[multi] (c) B&B over 2 shards, closure and cuts off: {r.status.name} objective "
+        f"{r.objective:.6f} = scipy {milp_opt:.6f}, nodes {r.nodes_processed}, lp_iterations "
+        f"{r.total_lp_iterations}, gram.launches={launches_bnb}, wall {walls['mesh B&B']:.3f} s "
+        f"(solver {r.wall_time_sec:.3f} s) on {card}"
+    )
+
+    # (b) and (d): two processes sharing the card in one gloo group; the
+    # blocks this process's allocator still caches go back to the card first,
+    # or the ranks find no memory for their CUDA contexts
+    reserved = torch.cuda.memory_reserved()
+    torch.cuda.empty_cache()
+    print(
+        f"[multi] released {(reserved - torch.cuda.memory_reserved()) / 2**30:.2f} GiB cached "
+        f"by this process's allocator before spawning the ranks"
+    )
+    t0 = time.perf_counter()
+    ranks = run_spmd(rank_legs, ["cuda:0", "cuda:0"], "gloo")
+    walls["two-process legs"] = time.perf_counter() - t0
+    launches_tp = 0
+    for i, (label, model, batch) in enumerate(tp_lps(st, torch.device("cuda"))):
+        n_real = model.ncols + model.nrows
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = st.mehrotra_solve_shared(batch, st.IpmOptions())
+        torch.cuda.synchronize()
+        walls[f"unsharded {label}"] = ref_s = time.perf_counter() - t0
+        ref_obj = torch.sum(batch.c[:, :n_real] * ref.x[:, :n_real], dim=-1).cpu().numpy()
+        highs = highs_objective(model)
+        legs = [rk["tp"][i] for rk in ranks]
+        for rk, leg in enumerate(legs):
+            ok = [
+                s == st.IpmStatus.CONVERGED or (s == st.IpmStatus.GAP_STALLED and g < 1e-6)
+                for s, g in zip(leg["status"], leg["gap"])
+            ]
+            check(all(ok), f"TP {label} rank {rk}: statuses {leg['status']} gaps {leg['gap']}")
+            p = np.asarray(leg["pobj"])
+            rel_ref = np.max(np.abs(p - ref_obj) / np.abs(ref_obj))
+            rel_highs = np.max(np.abs(p - highs)) / abs(highs)
+            check(rel_ref <= 1e-8, f"TP {label} rank {rk} vs unsharded: rel {rel_ref}")
+            check(rel_highs <= 1e-6, f"TP {label} rank {rk} vs HiGHS: rel {rel_highs}")
+            check(leg["launches"] > 0, f"TP {label}: gram launched on rank {rk}")
+            launches_tp += leg["launches"]
+        check(legs[0]["pobj"] == legs[1]["pobj"], f"TP {label}: the ranks gather the same x")
+        walls[f"TP {label}"] = legs[0]["wall"]
+        print(
+            f"[multi] (b) TP {label} on 2 gloo ranks sharing the card: statuses {legs[0]['status']}, "
+            f"iterations {legs[0]['iterations']} (unsharded {ref.iterations.cpu().tolist()}), "
+            f"objective {legs[0]['pobj'][0]:.10f} vs unsharded {ref_obj[0]:.10f} (rel "
+            f"{abs(legs[0]['pobj'][0] - ref_obj[0]) / abs(ref_obj[0]):.2e}) vs HiGHS {highs:.10f}; "
+            f"y equal on both ranks: {bool(np.array_equal(legs[0]['y'], legs[1]['y']))}; "
+            f"gram.launches {[leg['launches'] for leg in legs]}; TP wall "
+            f"{[round(leg['wall'], 4) for leg in legs]} s, unsharded {ref_s:.4f} s on {card}"
+        )
+    for rk, leg in enumerate(rk["bnb"] for rk in ranks):
+        print(
+            f"[multi] (d) rank {rk} branch_and_bound on the card: {leg['line']}, pooled remote "
+            f"incumbent logged: {leg['pooled']}, gram.launches={leg['launches']}, wall "
+            f"{leg['wall']:.3f} s on {card}"
+        )
+        check(leg["line"].startswith("PRIMAL 101.000000"), f"rank {rk}: {leg['line']}")
+    check(ranks[1]["bnb"]["pooled"], "rank 1 logs 'Pooled remote incumbent: 101'")
+    print(f"[multi] two-process legs (b) + (d), spawn included: {walls['two-process legs']:.3f} s on {card}")
+    return launches_window + launches_a + launches_bnb, launches_tp, walls
+
+
 def scpnre_text() -> str:
     from sypha_tpu_torch.testing import synthetic_scp
 
     return synthetic_scp(500, 5000, 0.10, seed=1)
+
+
+def scpnrg_text() -> str:
+    from sypha_tpu_torch.testing import synthetic_scp
+
+    return synthetic_scp(1000, 10000, 0.02, seed=0)
 
 
 def synthetic_scp_text(seed: int) -> str:
@@ -949,8 +1261,10 @@ def main() -> int:
     pobj_b = pobj.cpu().numpy()
     check(x_full.shape == (lanes, lp_b.n_pad) and bool(torch.isfinite(x_full).all()), "x_full")
     check(launches_b >= int(iters_b.max()) + 1, f"gram launches {launches_b} < iterations + 1")
+    refs_b = {}
     for lane in range(4):
         ref = highs_objective(model_b, fix0[lane, : model_b.ncols], fix1[lane, : model_b.ncols])
+        refs_b[lane] = ref
         conv = status_b[lane] == st.IpmStatus.CONVERGED
         if ref is None:
             check(not conv, f"lane {lane}: HiGHS infeasible but CONVERGED")
@@ -1007,7 +1321,17 @@ def main() -> int:
         torch, st, gram_mod, dev, card, model_a, highs_a, model_b, milp_seed, milp_opt
     )
     timers.stop("interfaces")
+
+    # -- phase 8: multi-device on the one card -----------------------------------
+    timers.start("multi_device")
+    milp_model = st.parse_scp_text(synthetic_scp_text(milp_seed), name=f"syn_scp4x_{milp_seed}")
+    launches_mesh, launches_tp, walls = multi_device_phase(
+        torch, st, gram_mod, shared, card, batch_a, highs_a, n_real, model_b, lp_b, fix0, fix1,
+        node_opts, refs_b, milp_model, milp_opt,
+    )
+    timers.stop("multi_device")
     print(timers.report())
+    print(f"phase 8 walls (s): {json.dumps(walls)} on {card}")
     for label, (full_s, solve_s, k1) in latency.items():
         print(
             f"single-LP latency, {label}: {full_s:.4f} s with pad_lp, {solve_s:.4f} s solve only, "
@@ -1016,6 +1340,11 @@ def main() -> int:
 
     bound_a, bound_by, bf16_a = gram_bound(128, 200, 1280)
     bound_b, _, bf16_b = gram_bound(64, 504, 5504)
+    slabs = {
+        "slab_scpnre": ("slab scpnre", (2, 504, 2752)),
+        "slab_scpnrg": ("slab scpnrg", (1, 1024, 5632)),
+        "scpnrg": ("scpnrg", (1, 1024, 11264)),
+    }
 
     print(json.dumps({"kernels": [{
         "name": "gram",
@@ -1028,6 +1357,8 @@ def main() -> int:
         "launches_bnb": launches_bnb,
         "launches_api": launches_api,
         "launches_cli": launches_cli,
+        "launches_mesh": launches_mesh,
+        "launches_tp": launches_tp,
         "max_abs_err": kernel_err,
         "ms": times["cell A"][0],
         "plain_ms": times["cell A"][1],
@@ -1047,6 +1378,11 @@ def main() -> int:
             f"{key}_b1_{label}": k1_b1[(1, m, n)][i]
             for label, m, n in (("scp4x", 200, 1280), ("scpnre", 504, 5504))
             for i, key in enumerate(("ms", "plain_ms", "library_ms"))
+        },
+        **{
+            f"{key}_{name}": (times[label] + (gram_bound(*shape)[0],))[i]
+            for name, (label, shape) in slabs.items()
+            for i, key in enumerate(("ms", "plain_ms", "library_ms", "bound_ms"))
         },
     }]}))
     print(card)

@@ -6,7 +6,9 @@ lanes that share one constraint matrix with the Mehrotra IPM, and run
 branch and bound with presolve, heuristics, cuts and the exact-cover
 closure over batched node windows.  The user entry points are those of the
 JAX package: ``solve_lp``/``solve_lp_batch``, the OR-Tools-style ``Solver``
-and the CLI (``python -m sypha_tpu_torch``).  Every entry point runs on the
+and the CLI (``python -m sypha_tpu_torch``); ``parallel`` lane-shards solves
+and node windows over a device mesh, runs the IPM tensor-parallel over a
+``torch.distributed`` process group, and pools B&B bounds across processes.  Every entry point runs on the
 CUDA card unless the caller passes ``device="cpu"`` (``--device cpu``);
 without a card it raises rather than fall back.  The f32 normal matrix of every IPM
 iteration comes from a hand-written Hopper kernel (ops.gram, csrc/gram.cu);
@@ -35,6 +37,17 @@ from sypha_tpu_torch.ipm.shared import (
 )
 from sypha_tpu_torch.milp import MilpResult, branch_and_bound
 from sypha_tpu_torch.ops.ell import EllMatrix
+from sypha_tpu_torch.parallel import (
+    BoundPool,
+    initialize_distributed,
+    make_mesh,
+    pooled_stats,
+    shard_batch,
+    shard_shared_batch,
+    solve_lp_batch_sharded,
+    solve_shared_batch_sharded,
+    solve_shared_batch_tensor_parallel,
+)
 
 __all__ = [
     "Solver",
@@ -65,4 +78,13 @@ __all__ = [
     "MilpResult",
     "branch_and_bound",
     "EllMatrix",
+    "BoundPool",
+    "initialize_distributed",
+    "make_mesh",
+    "pooled_stats",
+    "shard_batch",
+    "shard_shared_batch",
+    "solve_lp_batch_sharded",
+    "solve_shared_batch_sharded",
+    "solve_shared_batch_tensor_parallel",
 ]

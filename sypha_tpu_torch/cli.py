@@ -112,8 +112,7 @@ def build_parser() -> argparse.ArgumentParser:
                    "behavior)")
     p.add_argument("--bnb-mesh-devices", type=int, default=0,
                    help="dispatch node windows lane-sharded over this many "
-                   "devices (0 = single device; more is not ported yet and "
-                   "raises NotImplementedError)")
+                   "devices of --device's type (0 = single device)")
     p.add_argument("--bnb-precompile", type=int, default=1,
                    help="warm up node-LP windows (kernel build, first "
                    "windows) before starting the solve clock (1, default) "

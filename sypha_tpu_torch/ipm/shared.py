@@ -28,8 +28,19 @@ runs on both operators.
 
 The iterate (``IpmState``, from sypha_tpu/ipm/dense.py) and every f64
 quantity stay float64; only the Gram matrix, its factor and the
-preconditioner apply are float32.  The tensor-parallel ``axis_name`` of the
-JAX package is not ported yet.
+preconditioner apply are float32.
+
+Tensor parallelism: with ``group`` (a ``torch.distributed`` process group,
+the counterpart of the JAX package's ``axis_name``) each rank holds a column
+slab of A and the matching slices of c, col_mask, x and s, while b, y and
+row_pad are whole on every rank.  Every sum or min over columns and every
+A-product onto the row space is all-reduced over the group, at the places
+the JAX package psums and pmins; the m x m Gram matrix is the sum of the
+ranks' partial Grams, each formed by the Gram kernel on the rank's slab, and
+is factored on every rank.  The two host decisions, the IPM loop's "any lane
+RUNNING" and the PCG's "any lane above its threshold", are reduced too, so
+that every rank takes the same branch and issues the same collectives.
+``parallel.mesh.solve_shared_batch_tensor_parallel`` is the entry point.
 """
 
 from __future__ import annotations
@@ -39,6 +50,7 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from sypha_tpu_torch.config import IpmOptions
 from sypha_tpu_torch.core.device import resolve_device
@@ -219,20 +231,55 @@ def fix_columns(batch: SharedLpBatch, fix0, fix1) -> SharedLpBatch:
 # ---------------------------------------------------------------------------
 
 
-def _shared_factor(A32, d2_eff, row_reg, ft, ridge: float, leaf_size: int):
+def _reducers(group):
+    """Cross-rank reducers of tensor parallelism: (psum, pmin, world size,
+    agree).  ``psum``/``pmin`` all-reduce a tensor (SUM / MIN) over ``group``
+    in place and return it; every call site passes a temporary.  ``agree``
+    reduces a local boolean flag (MAX) and returns the host's bool.  With
+    ``group`` None (one device, or lane sharding) they are the identity and
+    ``bool``."""
+    if group is None:
+        return (lambda v: v), (lambda v: v), 1, bool
+
+    def reducer(op):
+        def reduce(v):
+            v = v.contiguous()
+            dist.all_reduce(v, op=op, group=group)
+            return v
+
+        return reduce
+
+    def agree(flag) -> bool:
+        f = flag.to(torch.int32).reshape(1)
+        dist.all_reduce(f, op=dist.ReduceOp.MAX, group=group)
+        return bool(f)
+
+    return (
+        reducer(dist.ReduceOp.SUM),
+        reducer(dist.ReduceOp.MIN),
+        dist.get_world_size(group),
+        agree,
+    )
+
+
+def _shared_factor(A32, d2_eff, row_reg, ft, ridge: float, leaf_size: int, group=None):
     """Factor of M_b = A diag(d2_eff_b) A^T + diag(row_reg_b), batched.
 
     Returns (Linv, dinv): the inverse Cholesky factor of the Jacobi-
     equilibrated M (plus ridge) and the equilibration scales, both in ``ft``.
     In f32 the Gram matrix comes from the Gram kernel (``gram``), which
-    applies w = sqrt(d2_eff) to A while loading it.
+    applies w = sqrt(d2_eff) to A while loading it.  Under tensor
+    parallelism (``group``) A32 and d2_eff are the rank's column slab, and
+    the partial Grams sum over the ranks before the ridge and the scaling.
     """
+    psum = _reducers(group)[0]
     w = torch.sqrt(d2_eff).to(ft)
     if ft == torch.float32:
         M = gram(A32, w.contiguous())
     else:
         Aw = A32[None, :, :] * w[:, None, :]
         M = torch.einsum("bik,bjk->bij", Aw, Aw)
+    M = psum(M)
     m = M.shape[-1]
     M = M + torch.diag_embed(row_reg.to(ft))
     diag = torch.diagonal(M, dim1=-2, dim2=-1)
@@ -251,9 +298,9 @@ def _precond(Linv, dinv, r):
     return (dinv * z).to(r.dtype)
 
 
-def _pcg(Linv, dinv, matvec, f, tol, max_steps: int):
+def _pcg(Linv, dinv, matvec, f, tol, max_steps: int, agree=bool):
     """Flexible PCG preconditioned by the f32 Cholesky factor (ops.spd)."""
-    return pcg_solve(lambda r: _precond(Linv, dinv, r), matvec, f, tol, max_steps)
+    return pcg_solve(lambda r: _precond(Linv, dinv, r), matvec, f, tol, max_steps, agree)
 
 
 def use_cg_strategy(opts: IpmOptions, m_pad: int) -> bool:
@@ -266,43 +313,49 @@ def use_cg_strategy(opts: IpmOptions, m_pad: int) -> bool:
     return False
 
 
-def shared_initial_point(batch: SharedLpBatch, opts: IpmOptions, A32, use_cg: bool):
-    """Mehrotra initial point, batched over lanes of the shared matrix."""
+def shared_initial_point(
+    batch: SharedLpBatch, opts: IpmOptions, A32, use_cg: bool, group=None
+):
+    """Mehrotra initial point, batched over lanes of the shared matrix
+    (``group``: tensor parallelism, as in ``mehrotra_solve_shared``)."""
     A, b, c, mask = batch.A, batch.b, batch.c, batch.col_mask
     Av, ATu, sqAv = _A_products(A)
     ft, ridge = _factor_params(opts)
     row_reg = batch.row_pad.expand(b.shape)
+    psum, pmin, _, agree = _reducers(group)
 
     def matvec(v):
-        return Av(mask * ATu(v)) + batch.row_pad * v
+        return psum(Av(mask * ATu(v))) + batch.row_pad * v
 
     if use_cg:
-        diag = sqAv(mask) + row_reg
+        diag = psum(sqAv(mask)) + row_reg
 
         def solve(f):
             return pcg_solve(
                 lambda r: r / torch.clamp(diag, min=1e-300),
-                matvec, f, 1e-12, opts.cg_max_iter,
+                matvec, f, 1e-12, opts.cg_max_iter, agree,
             )[0]
     else:
-        Linv, dinv = _shared_factor(A32, mask, row_reg, ft, ridge, opts.chol_leaf_size)
+        Linv, dinv = _shared_factor(
+            A32, mask, row_reg, ft, ridge, opts.chol_leaf_size, group
+        )
 
         def solve(f):
-            return _pcg(Linv, dinv, matvec, f, 1e-12, opts.newton_max_steps)[0]
+            return _pcg(Linv, dinv, matvec, f, 1e-12, opts.newton_max_steps, agree)[0]
 
     vy = solve(b)
     x = mask * ATu(vy)
-    Ac = Av(mask * c)
+    Ac = psum(Av(mask * c))
     y = solve(Ac)
     s = c - mask * ATu(y)
 
-    delta_x = torch.clamp(-1.5 * torch.amin(x, dim=-1, keepdim=True), min=0.0)
-    delta_s = torch.clamp(-1.5 * torch.amin(s, dim=-1, keepdim=True), min=0.0)
+    delta_x = torch.clamp(-1.5 * pmin(torch.amin(x, dim=-1, keepdim=True)), min=0.0)
+    delta_s = torch.clamp(-1.5 * pmin(torch.amin(s, dim=-1, keepdim=True)), min=0.0)
     x_hat = x + delta_x
     s_hat = s + delta_s
-    p = torch.sum(x_hat * s_hat, dim=-1, keepdim=True)
-    x = x_hat + 0.5 * p / torch.sum(s_hat, dim=-1, keepdim=True)
-    s = s_hat + 0.5 * p / torch.sum(x_hat, dim=-1, keepdim=True)
+    p = psum(torch.sum(x_hat * s_hat, dim=-1, keepdim=True))
+    x = x_hat + 0.5 * p / psum(torch.sum(s_hat, dim=-1, keepdim=True))
+    s = s_hat + 0.5 * p / psum(torch.sum(x_hat, dim=-1, keepdim=True))
     return x, y, s
 
 
@@ -321,6 +374,7 @@ def mehrotra_solve_shared(
     s0=None,
     state0: IpmState | None = None,
     iter_limit=None,
+    group=None,
 ) -> IpmState:
     """Batched Mehrotra predictor-corrector over a SharedLpBatch.
 
@@ -335,6 +389,11 @@ def mehrotra_solve_shared(
     state back as ``state0`` with a higher limit.  Lanes that stopped at
     MAX_ITER are revived when the new limit allows more steps; all other
     terminal statuses stay frozen.
+
+    ``group`` runs the solve tensor-parallel over a ``torch.distributed``
+    process group: ``batch`` holds this rank's column slab (A, c, col_mask,
+    and x0/s0 when given) with b, row_pad and obj_offset whole, and the
+    returned x and s are this rank's slabs (see the module docstring).
     """
     A, b, c, mask = batch.A, batch.b, batch.c, batch.col_mask
     Av, ATu, sqAv = _A_products(A)
@@ -348,9 +407,13 @@ def mehrotra_solve_shared(
         A32 = A.todense(ft) if batch.is_sparse else A.to(ft).contiguous()
     row_reg = batch.row_pad.expand(b.shape)
     RUNNING = int(IpmStatus.RUNNING)
+    # tensor parallelism: every sum/min over n and every A-product onto the
+    # row space reduces across the ranks; identity reducers without a group
+    psum, pmin, world, agree = _reducers(group)
+    n_total = n_pad * world
 
     norm_b = 1.0 + torch.linalg.vector_norm(b, dim=-1)
-    norm_c = 1.0 + torch.sqrt(torch.sum(c * c, dim=-1))
+    norm_c = 1.0 + torch.sqrt(psum(torch.sum(c * c, dim=-1)))
 
     iter_limit = opts.max_iter if iter_limit is None else int(iter_limit)
 
@@ -364,7 +427,7 @@ def mehrotra_solve_shared(
         )
     else:
         if x0 is None:
-            x, y, s = shared_initial_point(batch, opts, A32, use_cg)
+            x, y, s = shared_initial_point(batch, opts, A32, use_cg, group)
         else:
             x, y, s = x0, y0, s0
 
@@ -373,7 +436,7 @@ def mehrotra_solve_shared(
             x=x,
             y=y,
             s=s,
-            mu=torch.sum(x * s, dim=-1) / n_pad,
+            mu=psum(torch.sum(x * s, dim=-1)) / n_total,
             gap=one,
             res_p=one,
             res_d=one,
@@ -390,15 +453,15 @@ def mehrotra_solve_shared(
         factors inline."""
         x, y, s = st.x, st.y, st.s
 
-        r_b = Av(mask * x) - b
+        r_b = psum(Av(mask * x)) - b
         r_c = mask * ATu(y) + s - c
-        mu = torch.sum(x * s, dim=-1) / n_pad
+        mu = psum(torch.sum(x * s, dim=-1)) / n_total
 
-        pobj = torch.sum(c * x, dim=-1)
+        pobj = psum(torch.sum(c * x, dim=-1))
         dobj = torch.sum(b * y, dim=-1)
         gap = torch.abs(pobj - dobj) / (1.0 + torch.abs(pobj))
         res_p = torch.linalg.vector_norm(r_b, dim=-1) / norm_b
-        res_d = torch.sqrt(torch.sum(r_c * r_c, dim=-1)) / norm_c
+        res_d = torch.sqrt(psum(torch.sum(r_c * r_c, dim=-1))) / norm_c
 
         feasible = (res_p < opts.tol_feas) & (res_d < opts.tol_feas)
         tiny_mu = mu < opts.mu_tol_hard
@@ -421,11 +484,11 @@ def mehrotra_solve_shared(
         d2_eff = d2 * mask
 
         def matvec(v):
-            return Av(d2_eff * ATu(v)) + batch.row_pad * v
+            return psum(Av(d2_eff * ATu(v))) + batch.row_pad * v
 
         if use_cg:
             # Jacobi-CG with the adaptive tolerance schedule per IPM iteration
-            diag = sqAv(d2_eff) + row_reg
+            diag = psum(sqAv(d2_eff)) + row_reg
             cg_tol = torch.clamp(
                 opts.cg_tol_initial
                 * opts.cg_tol_decay ** st.iterations.to(c.dtype),
@@ -435,19 +498,20 @@ def mehrotra_solve_shared(
             def solve(f):
                 return pcg_solve(
                     lambda r: r / torch.clamp(diag, min=1e-300),
-                    matvec, f, cg_tol, opts.cg_max_iter,
+                    matvec, f, cg_tol, opts.cg_max_iter, agree,
                 )
 
             solve_gate = torch.clamp(100.0 * cg_tol[:, 0], min=1e-3)
         else:
             if Linv_c is None:
                 Linv_c, dinv_c = _shared_factor(
-                    A32, d2_eff, row_reg, ft, ridge, opts.chol_leaf_size
+                    A32, d2_eff, row_reg, ft, ridge, opts.chol_leaf_size, group
                 )
 
             def solve(f):
                 return _pcg(
-                    Linv_c, dinv_c, matvec, f, opts.newton_tol, opts.newton_max_steps
+                    Linv_c, dinv_c, matvec, f, opts.newton_tol, opts.newton_max_steps,
+                    agree,
                 )
 
             solve_gate = 1e-3
@@ -458,7 +522,7 @@ def mehrotra_solve_shared(
 
         def newton(r_xs):
             vec1 = r_xs / s_safe
-            f = Av(mask * (vec1 - d2 * r_c)) - r_b
+            f = psum(Av(mask * (vec1 - d2 * r_c))) - r_b
             dy, solve_rel = solve(f)
             ds = -r_c - mask * ATu(dy)
             dx = -vec1 - d2 * ds
@@ -466,16 +530,17 @@ def mehrotra_solve_shared(
 
         r_xs = x * s
         dxa, dya, dsa, rel_a = newton(r_xs)
-        a_p = _alpha_max_batch(x, dxa)[:, None]
-        a_d = _alpha_max_batch(s, dsa)[:, None]
-        mu_aff = torch.sum((x + a_p * dxa) * (s + a_d * dsa), dim=-1) / n_pad
+        a_p = pmin(_alpha_max_batch(x, dxa))[:, None]
+        a_d = pmin(_alpha_max_batch(s, dsa))[:, None]
+        mu_aff = psum(torch.sum((x + a_p * dxa) * (s + a_d * dsa), dim=-1)) / n_total
         sigma = (mu_aff / mu) ** opts.sigma_pow
 
         dx, dy, ds, rel_c = newton(r_xs + dxa * dsa - (sigma * mu)[:, None])
 
         # Gondzio multiple centrality correctors: push complementarity
         # products toward [beta_min, beta_max] * sigma*mu with extra solves
-        # on the same factor; accept a correction only if it lengthens the step
+        # on the same factor; accept a correction only if it lengthens the
+        # step.  The corrector's alphas stay rank-local, as in the JAX package.
         mu_t = (sigma * mu)[:, None]
         for _ in range(opts.max_correctors):
             ap = _alpha_max_batch(x, dx)
@@ -488,7 +553,7 @@ def mehrotra_solve_shared(
             )
             t = v - target  # residual to remove (0 inside the window)
             vec1 = t / s_safe
-            fcc = Av(mask * vec1)
+            fcc = psum(Av(mask * vec1))
             dyc, _ = solve(fcc)
             dsc = -(mask * ATu(dyc))
             dxc = -vec1 - d2 * dsc
@@ -506,23 +571,24 @@ def mehrotra_solve_shared(
             eta = torch.clamp(1.0 - mu, min=opts.eta)
         else:
             eta = torch.full_like(mu, opts.eta)
-        alpha_p = torch.clamp(eta * _alpha_max_batch(x, dx), max=1.0)[:, None]
-        alpha_d = torch.clamp(eta * _alpha_max_batch(s, ds), max=1.0)[:, None]
+        alpha_p = torch.clamp(eta * pmin(_alpha_max_batch(x, dx)), max=1.0)[:, None]
+        alpha_d = torch.clamp(eta * pmin(_alpha_max_batch(s, ds)), max=1.0)[:, None]
 
         x_new = x + alpha_p * dx
         y_new = y + alpha_d * dy
         s_new = s + alpha_d * ds
 
-        step_ok = (
-            torch.all(torch.isfinite(x_new), dim=-1)
-            & torch.all(torch.isfinite(s_new), dim=-1)
-            & torch.all(torch.isfinite(y_new), dim=-1)
+        finite_local = torch.all(torch.isfinite(x_new), dim=-1) & torch.all(
+            torch.isfinite(s_new), dim=-1
+        )
+        step_ok = (psum(1.0 - finite_local.to(x.dtype)) == 0.0) & torch.all(
+            torch.isfinite(y_new), dim=-1
         )
         # linear-solve quality gates: a Newton system the PCG could not solve
         # to within ~100x of its tolerance gives a garbage direction; also
         # accept the step only if it does not blow up primal feasibility.  A
         # rejected step ends the lane at its current iterate as GAP_STALLED.
-        res_p_new = torch.linalg.vector_norm(Av(mask * x_new) - b, dim=-1) / norm_b
+        res_p_new = torch.linalg.vector_norm(psum(Av(mask * x_new)) - b, dim=-1) / norm_b
         step_bad = res_p_new > torch.clamp(10.0 * res_p, min=1e-4)
         solve_failed = (torch.maximum(rel_a, rel_c) > solve_gate) | step_bad
 
@@ -566,13 +632,13 @@ def mehrotra_solve_shared(
         )
 
     st = state0
-    while bool((st.status == RUNNING).any()):
+    while agree((st.status == RUNNING).any()):
         if use_cg or opts.factor_refresh_every <= 1:
             Linv = dinv = None  # one_step factors inline (or needs none)
         else:
             d2_eff0 = torch.clamp(st.x / st.s, opts.d2_min, opts.d2_max) * mask
             Linv, dinv = _shared_factor(
-                A32, d2_eff0, row_reg, ft, ridge, opts.chol_leaf_size
+                A32, d2_eff0, row_reg, ft, ridge, opts.chol_leaf_size, group
             )
         for _ in range(max(1, opts.factor_refresh_every)):
             st = one_step(st, Linv, dinv)

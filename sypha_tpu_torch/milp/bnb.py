@@ -11,7 +11,8 @@ device seam is ``_NodeLpSolver``: node windows run the port's
 asks for the CPU), on the dense or the padded-ELL operator, with the Gram kernel
 forming every f32 normal matrix on the card.  ``precompile`` is a warm-up
 (build the kernel, run one short window per variant), ``_is_device_loss``
-recognises fatal CUDA errors, and the lane-sharded mesh is not ported yet.
+recognises fatal CUDA errors, and a ``mesh`` lane-shards every window over
+several devices (parallel.mesh.solve_node_batch_sharded).
 
 Host-side rewrite of the reference's B&B orchestrator
 (src/sypha_solver_bnb_driver.cpp:163-1167), preserving its control policies:
@@ -73,12 +74,8 @@ from sypha_tpu_torch.milp.presolve import (
     greedy_set_cover,
     incumbent_budget_pruning,
 )
+from sypha_tpu_torch.parallel.mesh import make_mesh, solve_node_batch_sharded
 from sypha_tpu_torch.utils.logging import Logger
-
-_NO_MESH = (
-    "lane-sharded node windows over several devices are not ported yet "
-    "(ROADMAP queue 1 item 10); run with mesh=None and mesh_devices=0"
-)
 
 
 @dataclass
@@ -157,7 +154,9 @@ class _NodeLpSolver:
     Branch decisions are per-lane column fixings on the shared-matrix
     batched IPM (ipm.node_batch): the model shape never changes with tree
     depth.  The base lives on ``device``, which the caller gives
-    (``branch_and_bound`` passes its own; None means ``cuda``).
+    (``branch_and_bound`` passes its own; None means ``cuda``).  With a
+    ``mesh`` (parallel.mesh.Mesh) every window is lane-sharded over its
+    devices and the lane rungs divide by the mesh size.
 
     ``window_stats`` counts, over the process, the node windows served per
     operator ("ell", "dense"), those that degraded to ``_failed_window``
@@ -175,11 +174,10 @@ class _NodeLpSolver:
     def __init__(
         self, base: BaseModel, cfg: SolverConfig, log: Logger, mesh=None, device=None
     ):
-        if mesh is not None:
-            raise NotImplementedError(_NO_MESH)
         self.base = base
         self.cfg = cfg
         self.log = log
+        self.mesh = mesh
         self.device = resolve_device(device)
         # latched True by solve_nodes when a dispatch dies with a fatal CUDA
         # error; every later window degrades to _failed_window and the main
@@ -272,7 +270,13 @@ class _NodeLpSolver:
         return max(0, min(self._bucket[0] - m_now, self._bucket[1] - n_now))
 
     def _dispatch(self, fix0, fix1, opts, warm, resume, iter_limit):
-        """One window solve on the device (tensors in, tensors out)."""
+        """One window solve on the device or lane-sharded over the mesh
+        (tensors in, tensors out)."""
+        if self.mesh is not None:
+            return solve_node_batch_sharded(
+                self._device_base, fix0, fix1, opts, self.mesh,
+                warm=warm, resume=resume, iter_limit=int(iter_limit),
+            )
         return solve_node_batch(
             self._device_base, fix0, fix1, opts, warm, resume, int(iter_limit)
         )
@@ -291,10 +295,11 @@ class _NodeLpSolver:
         if self._device_base is None:
             self._rebuild_device_base()
         if self.device.type == "cuda":
-            from sypha_tpu_torch.ops._build import load_library
+            from sypha_tpu_torch.ops.gram import load_kernel
 
-            load_library("gram")
-        rungs = sorted({1, self.cfg.bnb.node_batch})
+            load_kernel()
+        n_dev = self.mesh.size if self.mesh is not None else 1
+        rungs = sorted({n_dev, _round_up(self.cfg.bnb.node_batch, n_dev)})
         np_ = self._device_base.n_pad
         mp = self._device_base.m_pad
         dev = self.device
@@ -387,12 +392,14 @@ class _NodeLpSolver:
         # window size) by replicating the last node, as the JAX package
         # does to compile one executable per rung; the padding lanes are
         # part of the window's numerics (the batched PCG runs until every
-        # lane meets its tolerance), so the port keeps the same ladder
+        # lane meets its tolerance), so the port keeps the same ladder.  On
+        # a mesh the rung must also divide by the mesh size.
         B_real = len(nodes)
+        n_dev = self.mesh.size if self.mesh is not None else 1
         if B_real == 1:
-            B = 1
+            B = n_dev  # single solves use the smallest mesh-divisible rung
         else:
-            B = _round_up(B_real, self.cfg.bnb.node_batch)
+            B = _round_up(_round_up(B_real, self.cfg.bnb.node_batch), n_dev)
         np_ = self._device_base.n_pad
         mp = self._device_base.m_pad
         fix0 = np.broadcast_to(self._inactive, (B, np_)).copy()
@@ -834,11 +841,14 @@ def branch_and_bound(
 ) -> MilpResult:
     """MILP branch & bound.  Node windows run on ``device``: ``cuda`` by
     default, which raises RuntimeError where there is no card (pass
-    ``device="cpu"`` for the CPU).  A ``mesh`` (or cfg.bnb.mesh_devices > 0),
-    which lane-shards windows over several devices in the JAX package,
-    raises NotImplementedError: it is not ported yet.  Across processes the
-    incumbent/dual-bound/stop scalars pool via BoundPool each round (one
-    process only, so far).
+    ``device="cpu"`` for the CPU).  A ``mesh`` (parallel.mesh.Mesh; or
+    cfg.bnb.mesh_devices > 0, a mesh of that many ``device``s) runs every
+    node window lane-sharded over its devices
+    (parallel.mesh.solve_node_batch_sharded).  Across processes of a
+    ``torch.distributed`` group the incumbent/dual-bound/stop scalars pool
+    via BoundPool each round, the only traffic between processes, as the
+    reference keeps them in host variables
+    (src/sypha_solver_bnb_driver.cpp:256-261, :1048-1079).
 
     ``restrict_active`` (bool mask over columns) restricts the search to a
     column subset — used by the core-search phase.  Incumbents found under
@@ -944,8 +954,8 @@ def _branch_and_bound(
     log = log or Logger(verbosity=cfg.verbosity)
     t_start = time.monotonic()
     bnb = cfg.bnb
-    if mesh is not None or bnb.mesh_devices > 0:
-        raise NotImplementedError(_NO_MESH)
+    if mesh is None and bnb.mesh_devices > 0:
+        mesh = make_mesh(bnb.mesh_devices, device=device)
     px_tol = 1e-12
     int_tol = bnb.integrality_tol
     mip_gap_tol = 2.0 * cfg.ipm.tol_gap

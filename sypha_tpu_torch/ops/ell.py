@@ -10,10 +10,8 @@ Values are stored in f32: standard-form SCP coefficients are small integers
 (+-1 and the small integer coefficients of cut rows), exact in f32, and
 every product with an f64 vector comes out in f64, as in the JAX package.
 The products are plain PyTorch (``index_select`` + sum); in the JAX package
-they were XLA gather ops, not Pallas kernels.
-
-``ell_column_slabs`` (column slabs for tensor parallelism) comes with the
-multi-GPU slice.
+they were XLA gather ops, not Pallas kernels.  ``ell_column_slabs`` cuts an
+operator into the per-rank column slabs of tensor parallelism.
 """
 
 from __future__ import annotations
@@ -157,6 +155,70 @@ def ell_from_rows(
         fill[sj] += 1
 
     return _to_device(row_idx, row_val, col_idx, col_val, device)
+
+
+def ell_column_slabs(ell: EllMatrix, k: int, lane_multiple: int = 8) -> EllMatrix:
+    """Split an EllMatrix into ``k`` column slabs for tensor parallelism.
+
+    Returns one EllMatrix whose four tensors carry a LEADING shard axis of
+    size ``k`` (shard j owns global columns [j*n_pad/k, (j+1)*n_pad/k)), on
+    ``ell``'s device; ``EllMatrix(row_idx=slabs.row_idx[j], ...)`` is shard
+    j's operator:
+
+    - col_idx/col_val [k, n_pad/k, Kc]: the column orientation splits by a
+      reshape (its stored row indices are global, and rows are replicated
+      under column sharding);
+    - row_idx/row_val [k, m_pad, Kr']: the row orientation is rebuilt per
+      shard with SHARD-LOCAL column indices (global - j*n_pad/k), so each
+      rank's ``Av`` gathers from its own x slab and the partial row-space
+      products sum over the ranks (ipm.shared's reducers).  Kr' is the
+      largest per-shard row width, rounded up to ``lane_multiple`` and common
+      to all shards.
+
+    Built on the host with numpy, as in the JAX package."""
+    n_pad = ell.n_pad
+    if n_pad % k:
+        raise ValueError(f"n_pad {n_pad} not divisible into {k} slabs")
+    nl = n_pad // k
+    row_idx = ell.row_idx.cpu().numpy()
+    row_val = ell.row_val.cpu().numpy()
+    m_pad = row_idx.shape[0]
+    shard_of = row_idx // nl
+    valid = row_val != 0
+    kr = 1
+    for j in range(k):
+        cnt = ((shard_of == j) & valid).sum(axis=1)
+        kr = max(kr, int(cnt.max()) if cnt.size else 0)
+    kr = _round_up(kr, lane_multiple)
+    if kr > row_idx.shape[1]:
+        # a lane_multiple larger than the one the EllMatrix was built with
+        # can round kr past the source row width: pad the source (zero
+        # values are invalid slots) so the slices below stay rectangular
+        pad = kr - row_idx.shape[1]
+        row_idx = np.pad(row_idx, ((0, 0), (0, pad)))
+        row_val = np.pad(row_val, ((0, 0), (0, pad)))
+        shard_of = row_idx // nl
+        valid = row_val != 0
+    new_ri = np.zeros((k, m_pad, kr), dtype=np.int32)
+    new_rv = np.zeros((k, m_pad, kr), dtype=row_val.dtype)
+    lane = np.arange(kr)[None, :]
+    for j in range(k):
+        sel = (shard_of == j) & valid
+        # left-compact each row's selected slots in one pass: a stable
+        # argsort on ~sel moves them to the front in their original order
+        order = np.argsort(~sel, axis=1, kind="stable")
+        ri_s = np.take_along_axis(row_idx, order, axis=1)[:, :kr]
+        rv_s = np.take_along_axis(row_val, order, axis=1)[:, :kr]
+        mask = lane < sel.sum(axis=1)[:, None]
+        new_ri[j] = np.where(mask, ri_s - j * nl, 0)
+        new_rv[j] = np.where(mask, rv_s, 0)
+    kc = ell.col_idx.shape[1]
+    return EllMatrix(
+        row_idx=torch.from_numpy(new_ri).to(ell.device),
+        row_val=torch.from_numpy(new_rv).to(ell.device),
+        col_idx=ell.col_idx.reshape(k, nl, kc),
+        col_val=ell.col_val.reshape(k, nl, kc),
+    )
 
 
 def ell_from_dense(

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 
 import torch
 
@@ -32,12 +33,25 @@ def gram_reference(A32: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.einsum("bik,bjk->bij", Aw, Aw)
 
 
+_load_lock = threading.Lock()
+_count_lock = threading.Lock()
+
+
 @functools.cache
-def _kernel():
+def _bind():
     fn = load_library("gram").sypha_gram_f32
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def load_kernel():
+    """Build the kernel (nvcc, on the first use in a checkout) and bind it.
+
+    Under a lock, so host threads that launch on several devices at once
+    (parallel.mesh) build and bind it once."""
+    with _load_lock:
+        return _bind()
 
 
 def _check(A32: torch.Tensor, w: torch.Tensor):
@@ -58,7 +72,8 @@ def gram(A32: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
     A32: [m, n] f32 contiguous; w: [B, n] f32 contiguous, same device.
     CUDA tensors go through the hand-written kernel (``gram.launches`` counts
-    its launches); CPU tensors through ``gram_reference``.
+    its launches, exactly under host threads); CPU tensors through
+    ``gram_reference``.
     """
     _check(A32, w)
     if A32.device.type == "cpu":
@@ -74,10 +89,11 @@ def gram(A32: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         return M
     device = A32.device.index if A32.device.index is not None else torch.cuda.current_device()
     stream = torch.cuda.current_stream(device).cuda_stream
-    err = _kernel()(A32.data_ptr(), w.data_ptr(), M.data_ptr(), B, m, n, device, stream)
+    err = load_kernel()(A32.data_ptr(), w.data_ptr(), M.data_ptr(), B, m, n, device, stream)
     if err != 0:
         raise RuntimeError(f"gram kernel launch failed with CUDA error {err}")
-    gram.launches += 1
+    with _count_lock:
+        gram.launches += 1
     return M
 
 

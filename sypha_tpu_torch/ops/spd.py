@@ -9,9 +9,12 @@ and its tests, and are not ported.
 
 from __future__ import annotations
 
+import threading
 from typing import Callable
 
 import torch
+
+_count_lock = threading.Lock()
 
 
 def pcg_solve(
@@ -20,6 +23,7 @@ def pcg_solve(
     f: torch.Tensor,
     tol: torch.Tensor | float = 1e-10,
     max_steps: int = 40,
+    agree: Callable[[torch.Tensor], bool] = bool,
 ):
     """Flexible (Polak-Ribiere) PCG in f.dtype, matrix-free and batch-first.
 
@@ -30,7 +34,10 @@ def pcg_solve(
     the loop tests ``k < max_steps`` and whether ANY lane's residual is above
     its threshold, and while one is, every lane steps, converged ones too.
     In eager PyTorch that test is a device-to-host sync per step;
-    ``pcg_solve.steps`` counts the steps taken, over all calls.
+    ``pcg_solve.steps`` counts the steps taken, over all calls (exactly under
+    host threads).  ``agree`` turns the local "any lane above" flag into the
+    host's decision; tensor parallelism passes one that reduces it over the
+    ranks, so that every rank takes the same number of steps.
     """
     norm_f = torch.linalg.vector_norm(f, dim=-1, keepdim=True)
     thresh = tol * torch.clamp(norm_f, min=1e-300)
@@ -42,7 +49,7 @@ def pcg_solve(
     rz = torch.sum(r * z, dim=-1, keepdim=True)
 
     k = 0
-    while k < max_steps and bool(
+    while k < max_steps and agree(
         (torch.linalg.vector_norm(r, dim=-1, keepdim=True) > thresh).any()
     ):
         Ap = matvec(p)
@@ -60,7 +67,8 @@ def pcg_solve(
         p = z_new + beta * p
         r, rz = r_new, rz_new
         k += 1
-    pcg_solve.steps += k
+    with _count_lock:
+        pcg_solve.steps += k
     rel = torch.linalg.vector_norm(r, dim=-1) / torch.clamp(norm_f[..., 0], min=1e-300)
     return x, rel
 

@@ -1,7 +1,7 @@
 """Branch and bound in the PyTorch port against the JAX package: node windows
 of _NodeLpSolver on both node operators, whole B&B runs against
 scipy.optimize.milp, a run that has to branch, and the device seams that
-the port handles differently (mesh, CUDA device loss).
+the port handles differently (the mesh's devices, CUDA device loss).
 
 B&B runs are bounded by wall-clock deadlines inside presolve and the
 heuristics, so runs compare by the proven optimum and by sound bounds,
@@ -156,12 +156,22 @@ def test_bnb_branches_on_a_root_gap():
 
 
 def test_mesh_raises_not_implemented():
+    """The mesh is ported (the name dates from before): mesh_devices=2 and an
+    explicit 2-shard mesh both lane-shard every window and prove the optimum;
+    a mesh asking for more cards than exist raises."""
+    from sypha_tpu_torch.parallel.mesh import make_mesh
+
     _, tm = _models(*_from_text(TINY))
+    expected = _milp_optimum(tm)
     _, tcfg = _configs(mesh_devices=2)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tbnb(tm, tcfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tbnb(tm, tconfig.SolverConfig(verbosity=0), mesh=object(), device="cpu")
+    _check_optimal(tbnb(tm, tcfg, device="cpu"), tm, expected)
+    mesh = make_mesh(devices=["cpu", "cpu"])
+    _check_optimal(tbnb(tm, tconfig.SolverConfig(verbosity=0), mesh=mesh, device="cpu"), tm, expected)
+    solver = TNodeLpSolver(tbm.BaseModel(tm), tconfig.SolverConfig(verbosity=0), TLogger(verbosity=0),
+                           mesh=mesh, device="cpu")
+    assert len(solver.solve_nodes([tbm.BranchNode()], tconfig.IpmOptions())) == 1
+    with pytest.raises((ValueError, RuntimeError)):
+        make_mesh(10**6, device="cuda")
 
 
 def test_device_loss_degrades_windows(monkeypatch):

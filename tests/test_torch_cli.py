@@ -86,11 +86,16 @@ def test_cli_unreadable_input_file(tmp_path):
 
 
 def test_cli_mesh_is_not_ported(tmp_path):
+    """The mesh is ported (the name dates from before): --bnb-mesh-devices 2
+    on --device cpu lane-shards the windows over two CPU shards and prints
+    the JAX CLI's mesh run's PRIMAL."""
     path = tmp_path / "tiny.txt"
     path.write_text(TINY)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tcli.main(["--input-file", str(path), "--device", "cpu", "--verbosity", "0",
-                   "--bnb-mesh-devices", "2"])
+    argv = ["--input-file", str(path), "--verbosity", "0", "--bnb-mesh-devices", "2"]
+    rc, out = _run(tcli.main, argv + ["--device", "cpu"])
+    jrc, jout = _run(jcli.main, argv)
+    assert rc == jrc == 0
+    assert float(out["PRIMAL"]) == float(jout["PRIMAL"])
 
 
 def test_cli_profile_dir_writes_a_trace(tmp_path):

@@ -121,7 +121,8 @@ def cpu_forbidden(monkeypatch):
     "entry",
     ["resolve_device", "pad_lp", "pad_standard_form", "pad_standard_form_ell", "ell_from_rows",
      "ell_from_dense", "make_shared_batch_sparse", "make_shared_batch_auto", "branch_and_bound",
-     "Solver"],
+     "Solver", "make_mesh", "solve_shared_batch_sharded", "solve_lp_batch_sharded",
+     "solve_node_batch_sharded", "initialize_distributed", "graft_entry"],
 )
 def test_entry_point_without_a_card_raises(no_card, cpu_forbidden, entry):
     import numpy as np
@@ -132,9 +133,12 @@ def test_entry_point_without_a_card_raises(no_card, cpu_forbidden, entry):
     from sypha_tpu_torch.ipm import shared
     from sypha_tpu_torch.milp.bnb import branch_and_bound
     from sypha_tpu_torch.ops import ell
+    from sypha_tpu_torch.parallel import distributed, mesh
+    from sypha_tpu_torch import graft_entry
 
     model = _tiny_model()
     rows = [(np.asarray(r, np.int32), np.ones(len(r))) for r in model.rows]
+    cpu_lp = sf.pad_standard_form(np.eye(2), np.ones(2), np.ones(2), n_struct=2, device="cpu")
     calls = {
         "resolve_device": lambda: resolve_device(),
         "pad_lp": lambda: sf.pad_lp(model),
@@ -147,6 +151,16 @@ def test_entry_point_without_a_card_raises(no_card, cpu_forbidden, entry):
         "make_shared_batch_auto": lambda: shared.make_shared_batch_auto(model, 2),
         "branch_and_bound": lambda: branch_and_bound(model, config.SolverConfig(verbosity=0)),
         "Solver": lambda: api.Solver().Solve(),
+        "make_mesh": lambda: mesh.make_mesh(2),
+        "solve_shared_batch_sharded": lambda: mesh.solve_shared_batch_sharded(
+            shared.make_shared_batch(cpu_lp, 2)),
+        "solve_lp_batch_sharded": lambda: mesh.solve_lp_batch_sharded(sf.stack_lps([cpu_lp] * 2)),
+        "solve_node_batch_sharded": lambda: mesh.solve_node_batch_sharded(
+            cpu_lp, np.zeros((2, cpu_lp.n_pad)), np.zeros((2, cpu_lp.n_pad)),
+            config.IpmOptions(), mesh.make_mesh(2)),
+        "initialize_distributed": lambda: distributed.initialize_distributed(
+            "file:///nonexistent/rendezvous", 2, 0, backend="gloo"),
+        "graft_entry": lambda: graft_entry.entry(),
     }
     with pytest.raises(RuntimeError, match="no CUDA device.*device=\"cpu\""):
         calls[entry]()
