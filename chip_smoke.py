@@ -9,10 +9,12 @@ checkout.  Phases, each printed as it runs:
   1. device: card name and power limit, precision flags, build of the Gram
      kernel from sypha_tpu_torch/csrc/gram.cu;
   2. kernel: the Gram kernel against its plain PyTorch version and an f64
-     Gram at seven shapes (one with w over the IPM's full clamp range; the
-     last three are the column slabs of phase 8's tensor-parallel ranks and
-     the whole scpnrg-class matrix), per entry against |Aw| |Aw|^T, for bit
-     symmetry, with CUDA-event times;
+     Gram at seven shapes of its shared form (one A for every lane; one
+     shape with w over the IPM's full clamp range; the last three are the
+     column slabs of phase 8's tensor-parallel ranks and the whole
+     scpnrg-class matrix) and four of its per-lane form (a distinct A per
+     lane, one shape over the clamp range), per entry against |Aw| |Aw|^T,
+     for bit symmetry, with CUDA-event times;
   3. slice A: 128 lanes of a seeded scp4x-class LP (200 x 1000, 2%) through
      the reader, pad_lp, make_shared_batch and mehrotra_solve_shared, checked
      against HiGHS, then again with the plain Gram for comparison;
@@ -30,14 +32,15 @@ checkout.  Phases, each printed as it runs:
      sound bounds; both on the ELL node operator with the Gram kernel;
   7. interfaces, every run on the default device and counted: (a) the CLI
      in process on the scpnre-class LP against HiGHS, the single-LP latency
-     of solve_lp at scpnre and scp4x class, K1 at one lane; (b) ``python3 -m
+     of solve_lp (the per-lane engine on one lane) at scpnre and scp4x
+     class, K1 at one lane; (b) ``python3 -m
      sypha_tpu_torch`` as a subprocess on phase 6's MILP, with no --device;
      (c) the Solver on each route: the scp4x-class model as an LP and as a
      MILP, a general LP with every row type, maximisation and an offset
      (objective and duals against HiGHS), a knapsack (generic binary) and
      bounded general integers (binarized), against scipy; (d)
-     solve_lp_batch over four instances in one 64-lane bucket, one shared
-     call per instance, then warm-started from the cold iterates;
+     solve_lp_batch over four instances in one 64-lane bucket, one call of
+     the per-lane engine, then warm-started from the cold iterates;
   8. multi-device, on the one card: (a) slice B's window through
      solve_node_batch_sharded on a mesh of two shards of cuda:0, bit for bit
      its two halves solved alone, four lanes against HiGHS, K1 launched in
@@ -50,7 +53,15 @@ checkout.  Phases, each printed as it runs:
      padded 1024 x 11264) on the dense and the ELL operator, against the
      unsharded solve on the card and HiGHS, K1 launched on each rank; (d)
      branch_and_bound in both processes on a planted instance, pooling
-     through the BoundPool: both end at 101, rank 1 by the pooled incumbent.
+     through the BoundPool: both end at 101, rank 1 by the pooled incumbent;
+     (e) phase 9 (a)'s first 8 lanes through solve_lp_batch_sharded on the
+     two shards, bit for bit its halves through solve_lp_batch, the per-lane
+     K1 launched in both shard threads;
+  9. the per-lane engine (ipm.dense) through solve_lp_batch: (a) 32
+     distinct scp4x-class LPs against HiGHS and against the plain Gram, the
+     per-lane K1 counted from 0; (b) 8 distinct scpnre-class LPs against
+     HiGHS; (c) (a)'s first 8 lanes on the Jacobi-CG strategy; walls and
+     iterations per lane.
 
 Any failed check raises, and the script exits non-zero; without a CUDA card
 it exits non-zero before doing anything.  The last line is the JSON status
@@ -61,7 +72,8 @@ CLI run, the lane-sharded legs and the tensor-parallel ranks), its error
 against the plain version, its times against the plain version and the
 one-call library einsum, and its bound (the larger of the f32 SYRK's FLOPs
 over the f32 peak and its bytes over HBM bandwidth), at the batched shapes
-and at the slab shapes.
+and at the slab shapes; then the same for the kernel's per-lane form, whose
+``launches`` are phase 9 (a)'s.
 """
 
 from __future__ import annotations
@@ -130,36 +142,53 @@ def highs_objective(model, fix0=None, fix1=None):
     return float(res.fun)
 
 
-def kernel_phase(torch, gram_mod, dev, card):
-    """Phase 2: the Gram kernel against its plain version and an f64 Gram.
+# Phase 2's shapes: (B, m, n, label).  The shared form (one A [m, n] for
+# every lane) at slices A and B, a ragged shape, slice B's shape with w over
+# the IPM's whole clamp range, and phase 8's slabs; the per-lane form (a
+# distinct A [B, m, n] per lane) at a ragged shape, the clamp range, and
+# phase 9 (a)'s and slice B's classes.
+SHARED_SHAPES = (
+    (128, 200, 1280, "cell A"),
+    (64, 504, 5504, "cell B"),
+    (3, 37, 301, "ragged"),
+    (64, 504, 5504, "full range"),
+    (2, 504, 2752, "slab scpnre"),
+    (1, 1024, 5632, "slab scpnrg"),
+    (1, 1024, 11264, "scpnrg"),
+)
+PER_LANE_SHAPES = (
+    (3, 37, 301, "per-lane ragged"),
+    (16, 504, 5504, "per-lane full range"),
+    (128, 200, 1280, "per-lane cell A"),
+    (64, 504, 5504, "per-lane cell B"),
+)
 
-    Returns ({label: (kernel ms, plain ms, library ms)}, max abs error vs plain at the
-    first three shapes, max per-entry relative error of kernel and plain).
+
+def kernel_phase(torch, gram_mod, dev, card, shapes, per_lane: bool):
+    """Phase 2: the Gram kernel against its plain version and an f64 Gram,
+    with one A shared by the lanes or (``per_lane``) a distinct A per lane.
+
+    Returns ({label: (kernel ms, plain ms, library ms)}, max abs error vs plain
+    outside the full-range shapes, max per-entry relative error of kernel and
+    plain).
     """
-    gen = torch.Generator(device=dev).manual_seed(0)
+    gen = torch.Generator(device=dev).manual_seed(1 if per_lane else 0)
     kernel_err = entry_err = plain_entry_err = 0.0
     times = {}
-    shapes = (
-        (128, 200, 1280, "cell A"),
-        (64, 504, 5504, "cell B"),
-        (3, 37, 301, "ragged"),
-        (64, 504, 5504, "full range"),
-        (2, 504, 2752, "slab scpnre"),
-        (1, 1024, 5632, "slab scpnrg"),
-        (1, 1024, 11264, "scpnrg"),
-    )
     for B, m, n, label in shapes:
-        A32 = torch.randint(-1, 2, (m, n), generator=gen, device=dev).float()
-        if label == "full range":
+        A32 = torch.randint(-1, 2, (B, m, n) if per_lane else (m, n), generator=gen, device=dev).float()
+        if "full range" in label:
             # w = sqrt(d2), d2 log-uniform over the IPM's clamp [1e-30, 1e30]
             log_d2 = torch.rand((B, n), generator=gen, device=dev, dtype=torch.float64) * 60.0 - 30.0
             w = torch.sqrt(10.0**log_d2).float()
         else:
             w = 10.0 ** (torch.rand((B, n), generator=gen, device=dev) * 9.0 - 6.0)
+        before = gram_mod.gram.launches_per_lane
         M = gram_mod.gram(A32, w)
+        check(gram_mod.gram.launches_per_lane - before == int(per_lane), f"per-lane count at {label}")
         plain = gram_mod.gram_reference(A32, w)
         torch.cuda.synchronize()
-        Aw = A32.double()[None] * w.double()[:, None]
+        Aw = A32.double() * w.double()[:, None]
         G64 = Aw @ Aw.mT
         bound = Aw.abs() @ Aw.abs().mT  # per entry: sum_k |Aw_ik| |Aw_jk|
         del Aw
@@ -174,7 +203,7 @@ def kernel_phase(torch, gram_mod, dev, card):
         rel_p = entry_rel_err(plain, G64, bound)
         check(rel_k <= 4 * rel_p, f"gram per-entry error at {(B, m, n)}: {rel_k} > 4 x plain {rel_p}")
         del G64, bound
-        if label != "full range":  # there the absolute error scales with w^2 ~ 1e30
+        if "full range" not in label:  # there the absolute error scales with w^2 ~ 1e30
             kernel_err = max(kernel_err, err_plain)
         entry_err = max(entry_err, rel_k)
         plain_entry_err = max(plain_entry_err, rel_p)
@@ -182,6 +211,7 @@ def kernel_phase(torch, gram_mod, dev, card):
         plain_ms = time_ms(torch, lambda: gram_mod.gram_reference(A32, w))
         library_ms = time_ms(torch, lambda: gram_library_call(torch, A32, w))
         times[label] = (ms, plain_ms, library_ms)
+        del A32, w, M, plain
         print(
             f"[kernel] gram B={B} m={m} n={n} ({label}): max_abs_err vs f64 {err64:.3e} "
             f"(limit {1e-5 * scale:.3e}), vs plain {err_plain:.3e}; per-entry rel err "
@@ -419,20 +449,26 @@ BF16_FLOPS = 989e12
 HBM_BYTES = 3.35e12
 
 
-def gram_bound(B: int, m: int, n: int):
+def gram_bound(B: int, m: int, n: int, per_lane: bool = False):
     """Least time of one Gram call on the card: the lower-triangle SYRK's
-    f32 FLOPs (2 B m(m+1)/2 n) over the f32 peak, against A, w read once and
-    M written once over HBM bandwidth.  Returns (ms, bound_by, bf16x6 ms):
-    the last is the kernel's own work, six bf16 products, over the bf16 peak."""
+    f32 FLOPs (2 B m(m+1)/2 n) over the f32 peak, against A (one [m, n], or
+    ``per_lane`` one per lane), w read once and M written once over HBM
+    bandwidth.  Returns (ms, bound_by, bf16x6 ms): the last is the kernel's
+    own work, six bf16 products, over the bf16 peak."""
     flops = 2.0 * B * (m * (m + 1) / 2) * n
-    bytes_ = 4.0 * (m * n + B * n + B * m * m)
+    bytes_ = 4.0 * ((B if per_lane else 1) * m * n + B * n + B * m * m)
     ops_ms, bytes_ms = flops / F32_FLOPS * 1e3, bytes_ / HBM_BYTES * 1e3
     bound_by = "operations" if ops_ms >= bytes_ms else "bytes"
     return max(ops_ms, bytes_ms), bound_by, 6.0 * flops / BF16_FLOPS * 1e3
 
 
 def gram_library_call(torch, A32, w):
-    """One PyTorch call computing the Gram function on the same inputs."""
+    """One PyTorch call computing the Gram function on the same inputs.  For
+    a per-lane A the einsum contracts left to right: the path opt_einsum
+    picks materialises [B, m, m, n] (83 GiB at (16, 504, 5504))."""
+    if A32.ndim == 3:
+        with torch.backends.opt_einsum.flags(enabled=False):
+            return torch.einsum("bik,bk,bk,bjk->bij", A32, w, w, A32)
     return torch.einsum("ik,bk,bk,jk->bij", A32, w, w, A32)
 
 
@@ -599,8 +635,10 @@ def interfaces_phase(torch, st, gram_mod, dev, card, model_a, highs_a, model_b, 
     the MILP with no --device; (c) the Solver, one route per run; (d)
     solve_lp_batch over four instances in one bucket, cold and warm.
     Returns (K1 launches of the Solver and solve_lp_batch runs, K1 launches
-    of the in-process CLI run, {label: (latency s, solve s, launches)},
-    {shape: (kernel ms, plain ms, library ms)} at B = 1)."""
+    of the in-process CLI run, {label: (latency s, solve s, launches,
+    shared-engine solve s)}, {shape: (kernel ms, plain ms, library ms)} at
+    B = 1, and how many of the Solver/solve_lp_batch and of the CLI launches
+    were of the per-lane form)."""
     import atexit
     import contextlib
     import io
@@ -614,13 +652,17 @@ def interfaces_phase(torch, st, gram_mod, dev, card, model_a, highs_a, model_b, 
     from sypha_tpu_torch.api import ResultStatus, Solver
     from sypha_tpu_torch.ipm import driver
 
+    per_lane = {}  # label -> launches of the per-lane form in that run
+
     def counted(label, fn):
         gram_mod.gram.launches = 0
+        gram_mod.gram.launches_per_lane = 0
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = gram_mod.gram.launches
+        per_lane[label] = gram_mod.gram.launches_per_lane
         check(launches > 0, f"{label}: gram launched")
         return out, wall, launches
 
@@ -656,7 +698,9 @@ def interfaces_phase(torch, st, gram_mod, dev, card, model_a, highs_a, model_b, 
         rel = abs(res.primal_objective - ref) / abs(ref)
         check(rel <= 1e-6, f"solve_lp at {label}: {res.primal_objective} vs HiGHS {ref}")
         st.solve_lp(st.pad_lp(model, device=dev))  # warm-up
-        full, solve = [], []
+        one_lane = st.make_shared_batch(lp, 1)
+        st.mehrotra_solve_shared(one_lane, st.IpmOptions())
+        full, solve, shared_solve = [], [], []
         for _ in range(5):
             t0 = time.perf_counter()
             st.solve_lp(st.pad_lp(model, device=dev))
@@ -664,12 +708,20 @@ def interfaces_phase(torch, st, gram_mod, dev, card, model_a, highs_a, model_b, 
             t0 = time.perf_counter()
             st.solve_lp(lp)
             solve.append(time.perf_counter() - t0)
-        latency[label] = (statistics.median(full), statistics.median(solve), launches)
+            # the engine the port's solve_lp ran before the per-lane one, for comparison
+            t0 = time.perf_counter()
+            sh = st.mehrotra_solve_shared(one_lane, st.IpmOptions())
+            sh.status.cpu()
+            shared_solve.append(time.perf_counter() - t0)
+        latency[label] = (
+            statistics.median(full), statistics.median(solve), launches, statistics.median(shared_solve)
+        )
         print(
             f"[interfaces] single-LP latency at {label} ({model.nrows}x{model.ncols}, padded "
             f"{lp.m_pad}x{lp.n_pad}): solve_lp(pad_lp(model)) {latency[label][0]:.4f} s, "
-            f"solve_lp of a padded LP {latency[label][1]:.4f} s (medians of 5, warm); "
-            f"{res.iterations} iterations, gram.launches={launches}, CONVERGED at "
+            f"solve_lp of a padded LP {latency[label][1]:.4f} s, the shared-matrix engine on one "
+            f"lane {latency[label][3]:.4f} s ({int(sh.iterations[0])} iterations) (medians of 5, "
+            f"warm, in turns); {res.iterations} iterations, gram.launches={launches}, CONVERGED at "
             f"{res.primal_objective:.10f} (rel {rel:.2e}) on {card}"
         )
     k1_b1 = {}
@@ -779,14 +831,14 @@ def interfaces_phase(torch, st, gram_mod, dev, card, model_a, highs_a, model_b, 
     refs = [highs_a] + [highs_objective(m) for m in models[1:]]
     lps = [st.pad_lp(m, device=dev) for m in models]
     stacked = st.stack_lps([lps[lane % 4] for lane in range(64)])
-    engine = driver.mehrotra_solve_shared
+    engine = driver.mehrotra_solve
     calls = []
 
-    def counted_engine(batch, *a, **kw):
-        calls.append(batch.n_lanes)
-        return engine(batch, *a, **kw)
+    def counted_engine(lp, *a, **kw):
+        calls.append(lp.A.shape[0])
+        return engine(lp, *a, **kw)
 
-    driver.mehrotra_solve_shared = counted_engine
+    driver.mehrotra_solve = counted_engine
     try:
         cold, wall, launches = counted("solve_lp_batch", lambda: st.solve_lp_batch(stacked, as_results=False))
         results = st.solve_lp_batch(stacked)
@@ -795,9 +847,9 @@ def interfaces_phase(torch, st, gram_mod, dev, card, model_a, highs_a, model_b, 
             "solve_lp_batch warm", lambda: st.solve_lp_batch(stacked, warm_start=(x0, cold.y, s0))
         )
     finally:
-        driver.mehrotra_solve_shared = engine
+        driver.mehrotra_solve = engine
     launches_api += launches + warm_launches
-    check(calls[:4] == [16] * 4 and len(calls) == 12, f"solve_lp_batch: one shared call per instance, got {calls}")
+    check(calls == [64] * 3, f"solve_lp_batch: one engine call for the 64 lanes, got {calls}")
     for lane, (res, w) in enumerate(zip(results, warm)):
         ref = refs[lane % 4]
         check(res.converged and w.converged, f"solve_lp_batch lane {lane} CONVERGED")
@@ -807,12 +859,14 @@ def interfaces_phase(torch, st, gram_mod, dev, card, model_a, highs_a, model_b, 
     warm_it = sorted({r.iterations for r in warm})
     print(
         f"[interfaces] (d) solve_lp_batch of 64 lanes (4 instances x 16, interleaved, padded "
-        f"{stacked.m_pad}x{stacked.n_pad}): 4 shared calls of 16 lanes, all CONVERGED at their "
+        f"{stacked.m_pad}x{stacked.n_pad}): one per-lane engine call of 64 lanes, all CONVERGED at their "
         f"HiGHS optima {[round(r, 6) for r in refs]}; iterations cold {cold_it}, warm from the "
         f"cold iterates {warm_it}; cold {wall:.3f} s ({launches} gram launches), warm "
         f"{warm_wall:.3f} s ({warm_launches}) on {card}"
     )
-    return launches_api, launches_cli, latency, k1_b1
+    per_lane_cli = per_lane.pop("cli LP")
+    per_lane_api = sum(v for k, v in per_lane.items() if not k.startswith("solve_lp at "))
+    return launches_api, launches_cli, latency, k1_b1, per_lane_api, per_lane_cli
 
 
 def planted_model(st):
@@ -918,12 +972,20 @@ def rank_legs():
     return out
 
 
-def multi_device_phase(torch, st, gram_mod, shared, card, batch_a, highs_a, n_real_a,
-                       model_b, lp_b, fix0, fix1, node_opts, refs_b, milp_model, milp_opt):
+def lanes_of(st, lp, sl):
+    """Lanes ``sl`` of a stacked PaddedLp."""
+    import dataclasses
+
+    return st.PaddedLp(**{f.name: getattr(lp, f.name)[sl] for f in dataclasses.fields(lp)})
+
+
+def multi_device_phase(torch, st, gram_mod, shared, spd, card, batch_a, highs_a, n_real_a,
+                       model_b, lp_b, fix0, fix1, node_opts, refs_b, milp_model, milp_opt, lp8):
     """Phase 8: the multi-device paths on the one card.
 
     Returns (K1 launches of the lane-sharded legs (a) and (c), K1 launches of
-    the tensor-parallel ranks (b), {label: wall s} of every leg)."""
+    the tensor-parallel ranks (b), K1 launches of the per-lane leg (e),
+    {label: wall s} of every leg)."""
     import collections
     import threading
 
@@ -933,6 +995,7 @@ def multi_device_phase(torch, st, gram_mod, shared, card, batch_a, highs_a, n_re
         make_mesh,
         pooled_stats,
         run_spmd,
+        solve_lp_batch_sharded,
         solve_shared_batch_sharded,
     )
     from sypha_tpu_torch.parallel.mesh import solve_node_batch_sharded
@@ -1020,6 +1083,57 @@ def multi_device_phase(torch, st, gram_mod, shared, card, batch_a, highs_a, n_re
         f"gram.launches={launches_a}; {walls['slice A sharded']:.4f} s on {card}"
     )
 
+    # (e) the per-lane engine: phase 9 (a)'s first 8 lanes on the two shards
+    per_thread_lanes = collections.Counter()
+    real_spd_gram = spd.gram
+
+    def counting_lane_gram(A32, w):
+        if A32.ndim == 3:
+            per_thread_lanes[threading.get_ident()] += 1
+        return real_spd_gram(A32, w)
+
+    whole = st.solve_lp_batch(lp8, as_results=False)  # unsharded, and warm
+    torch.cuda.synchronize()
+    before = gram_mod.gram.launches_per_lane
+    spd.gram = counting_lane_gram
+    try:
+        t0 = time.perf_counter()
+        st_lb, stats_lb = solve_lp_batch_sharded(lp8, st.IpmOptions(), mesh)
+        torch.cuda.synchronize()
+        walls["per-lane batch sharded"] = time.perf_counter() - t0
+    finally:
+        spd.gram = real_spd_gram
+    launches_lanes = gram_mod.gram.launches_per_lane - before
+    check(
+        len(per_thread_lanes) == 2 and min(per_thread_lanes.values()) > 0
+        and sum(per_thread_lanes.values()) == launches_lanes,
+        f"per-lane K1 launched in both shard threads: {dict(per_thread_lanes)}, total {launches_lanes}",
+    )
+    halves = [st.solve_lp_batch(lanes_of(st, lp8, sl), as_results=False) for sl in (slice(0, 4), slice(4, 8))]
+    fields = ("x", "y", "s", "mu", "gap", "res_p", "res_d", "iterations", "status", "best_gap", "stall_count")
+    for name in fields:
+        check(
+            torch.equal(getattr(st_lb, name), torch.cat([getattr(h, name) for h in halves])),
+            f"sharded per-lane batch {name} equals its halves through solve_lp_batch",
+        )
+    check(bool((st_lb.status == st.IpmStatus.CONVERGED).all()), "sharded per-lane batch CONVERGED")
+    check(torch.equal(st_lb.status, whole.status), "sharded per-lane batch statuses = unsharded")
+    bitwise = [name for name in fields if torch.equal(getattr(st_lb, name), getattr(whole, name))]
+    obj_sh = torch.sum(lp8.c * st_lb.x, dim=-1)
+    obj_wh = torch.sum(lp8.c * whole.x, dim=-1)
+    rel_wh = float(((obj_sh - obj_wh).abs() / obj_wh.abs()).max())
+    check(rel_wh <= 1e-8, f"sharded per-lane batch objectives vs unsharded: rel {rel_wh}")
+    check(int(stats_lb[2]) == 8, f"sharded per-lane batch pooled converged {int(stats_lb[2])}")
+    print(
+        f"[multi] (e) solve_lp_batch_sharded of phase 9 (a)'s first 8 lanes (a distinct A each) on "
+        f"2 shards of cuda:0: all CONVERGED, bit for bit its two 4-lane halves through "
+        f"solve_lp_batch; against the unsharded 8-lane call: statuses equal, fields equal bit for "
+        f"bit {bitwise}, objectives max rel {rel_wh:.2e}, iterations "
+        f"{st_lb.iterations.cpu().tolist()} vs {whole.iterations.cpu().tolist()}; per-lane K1 "
+        f"launches {launches_lanes} ({sorted(per_thread_lanes.values())} per shard thread); "
+        f"{walls['per-lane batch sharded']:.4f} s on {card}"
+    )
+
     # (c) the B&B with every node window on the 2-shard mesh
     cfg = st.SolverConfig(verbosity=3)
     cfg = cfg.replace(bnb=cfg.bnb.replace(
@@ -1098,7 +1212,99 @@ def multi_device_phase(torch, st, gram_mod, shared, card, batch_a, highs_a, n_re
         check(leg["line"].startswith("PRIMAL 101.000000"), f"rank {rk}: {leg['line']}")
     check(ranks[1]["bnb"]["pooled"], "rank 1 logs 'Pooled remote incumbent: 101'")
     print(f"[multi] two-process legs (b) + (d), spawn included: {walls['two-process legs']:.3f} s on {card}")
-    return launches_window + launches_a + launches_bnb, launches_tp, walls
+    return launches_window + launches_a + launches_bnb, launches_tp, launches_lanes, walls
+
+
+def per_lane_phase(torch, st, gram_mod, spd, card, models_a, lp_a32):
+    """Phase 9: the per-lane engine (ipm.dense) through solve_lp_batch.
+
+    (a) the 32 distinct scp4x-class instances of ``lp_a32`` (the main path
+    of the per-lane K1, counted from 0), four lanes against HiGHS, then again
+    with the plain Gram; (b) 8 distinct scpnre-class instances, two lanes
+    against HiGHS; (c) (a)'s first 8 lanes on the Jacobi-CG strategy with a
+    tight per-lane tolerance schedule (1e-8 halving to 1e-11: the default
+    1e-2 .. 1e-8 schedule ends scp4x-class lanes GAP_STALLED, on purpose, as
+    in the JAX package's Krylov tests).  Returns (per-lane K1 launches of
+    (a), of (b) and of (c), {label: wall s}, {label: iterations per lane})."""
+    import numpy as np
+
+    from sypha_tpu_torch.testing import synthetic_scp
+
+    walls, iters = {}, {}
+
+    def run(label, lp, opts, min_launches=None):
+        torch.cuda.synchronize()
+        gram_mod.gram.launches = 0
+        gram_mod.gram.launches_per_lane = 0
+        t0 = time.perf_counter()
+        res = st.solve_lp_batch(lp, opts)
+        walls[label] = time.perf_counter() - t0
+        iters[label] = [r.iterations for r in res]
+        launches = gram_mod.gram.launches_per_lane
+        check(launches > 0 and launches == gram_mod.gram.launches, f"phase 9 {label}: per-lane K1 launches {launches}")
+        need = max(iters[label]) + 1 if min_launches is None else min_launches
+        check(launches >= need, f"phase 9 {label}: {launches} per-lane K1 launches < {need}")
+        check(all(r.converged for r in res), f"phase 9 {label}: statuses {[r.status.name for r in res]}")
+        return res, launches
+
+    def against_highs(label, res, models, lanes):
+        rels = []
+        for lane in lanes:
+            ref = highs_objective(models[lane])
+            rel = abs(res[lane].primal_objective - ref) / abs(ref)
+            check(rel <= 1e-6, f"phase 9 {label} lane {lane}: {res[lane].primal_objective} vs HiGHS {ref}")
+            rels.append(rel)
+        return max(rels)
+
+    # (a) 32 distinct scp4x-class instances
+    opts = st.IpmOptions()
+    res_a, launches_a = run("(a)", lp_a32, opts)
+    rel_a = against_highs("(a)", res_a, models_a, range(4))
+    spd.gram = gram_mod.gram_reference
+    try:
+        t0 = time.perf_counter()
+        plain = st.solve_lp_batch(lp_a32, opts)
+        walls["(a) plain Gram"] = time.perf_counter() - t0
+    finally:
+        spd.gram = gram_mod.gram
+    check([r.status for r in plain] == [r.status for r in res_a], "phase 9 (a) statuses, kernel vs plain Gram")
+    rel_p = max(abs(r.primal_objective - p.primal_objective) / abs(p.primal_objective) for r, p in zip(res_a, plain))
+    check(rel_p <= 1e-8, f"phase 9 (a) objectives, kernel vs plain Gram: rel {rel_p}")
+    print(
+        f"[per-lane] (a) solve_lp_batch of 32 distinct scp4x-class LPs (padded "
+        f"{lp_a32.m_pad}x{lp_a32.n_pad}): all CONVERGED, lanes 0-3 vs HiGHS max rel {rel_a:.2e}; "
+        f"iterations {iters['(a)']}; per-lane K1 launches {launches_a}; wall {walls['(a)']:.4f} s; "
+        f"plain Gram: statuses equal, objectives max rel {rel_p:.2e}, iterations "
+        f"{[r.iterations for r in plain]}, wall {walls['(a) plain Gram']:.4f} s on {card}"
+    )
+
+    # (b) 8 distinct scpnre-class instances
+    models_b = [st.parse_scp_text(synthetic_scp(500, 5000, 0.10, seed=s), name=f"syn_scpnre_{s}") for s in range(8)]
+    lp_b8 = st.stack_lps([st.pad_lp(m, device=lp_a32.c.device) for m in models_b])
+    res_b, launches_b = run("(b)", lp_b8, opts)
+    rel_b = against_highs("(b)", res_b, models_b, range(2))
+    print(
+        f"[per-lane] (b) solve_lp_batch of 8 distinct scpnre-class LPs (padded "
+        f"{lp_b8.m_pad}x{lp_b8.n_pad}, A in f64 and f32 {lp_b8.A.numel() * 12 / 2**20:.0f} MiB): "
+        f"all CONVERGED, lanes 0-1 vs HiGHS max rel {rel_b:.2e}; iterations {iters['(b)']}; "
+        f"per-lane K1 launches {launches_b}; wall {walls['(b)']:.4f} s on {card}"
+    )
+    del lp_b8
+
+    # (c) the CG strategy on (a)'s first 8 lanes
+    cg = st.IpmOptions(linear_solver="cg", cg_tol_initial=1e-8, cg_tol_final=1e-11, cg_max_iter=2000)
+    res_c, launches_c = run("(c)", lanes_of(st, lp_a32, slice(0, 8)), cg, min_launches=1)
+    rel_c = max(abs(r.primal_objective - a.primal_objective) / abs(a.primal_objective) for r, a in zip(res_c, res_a))
+    check(rel_c <= 1e-7, f"phase 9 (c) objectives vs (a): rel {rel_c}")
+    rel_ch = against_highs("(c)", res_c, models_a, range(4))
+    print(
+        f"[per-lane] (c) the same first 8 lanes on the Jacobi-CG strategy (cg_tol 1e-8 -> 1e-11): "
+        f"all CONVERGED, vs HiGHS max rel {rel_ch:.2e}, vs (a) max rel {rel_c:.2e}; iterations "
+        f"{iters['(c)']}; per-lane K1 launches {launches_c} (its initial point); wall "
+        f"{walls['(c)']:.4f} s on {card}"
+    )
+    print(f"[per-lane] (d) walls (s) {json.dumps(walls)}; iterations per lane {json.dumps(iters)} on {card}")
+    return launches_a, launches_b, launches_c, walls, iters
 
 
 def scpnre_text() -> str:
@@ -1132,6 +1338,7 @@ def main() -> int:
     from sypha_tpu_torch.config import BnbOptions
     from sypha_tpu_torch.ipm import shared
     from sypha_tpu_torch.ops import gram as gram_mod
+    from sypha_tpu_torch.ops import spd
     from sypha_tpu_torch.ops._build import library_path, load_library
     from sypha_tpu_torch.ops.spd import pcg_solve
     from sypha_tpu_torch.testing import synthetic_scp
@@ -1165,7 +1372,12 @@ def main() -> int:
     )
 
     # -- phase 2: the kernel against its plain version ---------------------
-    times, kernel_err, entry_err, plain_entry_err = kernel_phase(torch, gram_mod, dev, card)
+    times, kernel_err, entry_err, plain_entry_err = kernel_phase(
+        torch, gram_mod, dev, card, SHARED_SHAPES, per_lane=False
+    )
+    times_pl, kernel_err_pl, entry_err_pl, plain_entry_err_pl = kernel_phase(
+        torch, gram_mod, dev, card, PER_LANE_SHAPES, per_lane=True
+    )
 
     # -- phase 3: slice A, batched LP relaxations --------------------------
     timers.start("slice_a_setup")
@@ -1317,28 +1529,44 @@ def main() -> int:
 
     # -- phase 7: the user entry points ---------------------------------------
     timers.start("interfaces")
-    launches_api, launches_cli, latency, k1_b1 = interfaces_phase(
+    launches_api, launches_cli, latency, k1_b1, per_lane_api, per_lane_cli = interfaces_phase(
         torch, st, gram_mod, dev, card, model_a, highs_a, model_b, milp_seed, milp_opt
     )
     timers.stop("interfaces")
 
     # -- phase 8: multi-device on the one card -----------------------------------
+    # phase 9 (a)'s lanes: 32 distinct scp4x-class instances, one bucket
+    timers.start("per_lane_setup")
+    models_9 = [st.parse_scp_text(synthetic_scp_text(seed), name=f"syn_scp4x_{seed}") for seed in range(32)]
+    lp_9 = st.stack_lps([st.pad_lp(m, device=dev) for m in models_9])
+    timers.stop("per_lane_setup")
+
     timers.start("multi_device")
     milp_model = st.parse_scp_text(synthetic_scp_text(milp_seed), name=f"syn_scp4x_{milp_seed}")
-    launches_mesh, launches_tp, walls = multi_device_phase(
-        torch, st, gram_mod, shared, card, batch_a, highs_a, n_real, model_b, lp_b, fix0, fix1,
-        node_opts, refs_b, milp_model, milp_opt,
+    launches_mesh, launches_tp, launches_mesh_lanes, walls = multi_device_phase(
+        torch, st, gram_mod, shared, spd, card, batch_a, highs_a, n_real, model_b, lp_b, fix0, fix1,
+        node_opts, refs_b, milp_model, milp_opt, lanes_of(st, lp_9, slice(0, 8)),
     )
     timers.stop("multi_device")
+
+    # -- phase 9: the per-lane engine ------------------------------------------
+    timers.start("per_lane")
+    launches_9a, launches_9b, launches_9c, walls_9, iters_9 = per_lane_phase(
+        torch, st, gram_mod, spd, card, models_9, lp_9
+    )
+    timers.stop("per_lane")
     print(timers.report())
     print(f"phase 8 walls (s): {json.dumps(walls)} on {card}")
-    for label, (full_s, solve_s, k1) in latency.items():
+    print(f"phase 9 walls (s): {json.dumps(walls_9)}; iterations {json.dumps(iters_9)} on {card}")
+    for label, (full_s, solve_s, k1, shared_s) in latency.items():
         print(
             f"single-LP latency, {label}: {full_s:.4f} s with pad_lp, {solve_s:.4f} s solve only, "
-            f"{k1} gram launches (medians of 5, warm) on {card}"
+            f"{k1} gram launches; shared-matrix engine on one lane {shared_s:.4f} s (medians of 5, "
+            f"warm) on {card}"
         )
 
     bound_a, bound_by, bf16_a = gram_bound(128, 200, 1280)
+    bound_pl_a, bound_by_pl_a, bf16_pl_a = gram_bound(128, 200, 1280, per_lane=True)
     bound_b, _, bf16_b = gram_bound(64, 504, 5504)
     slabs = {
         "slab_scpnre": ("slab scpnre", (2, 504, 2752)),
@@ -1355,8 +1583,8 @@ def main() -> int:
         "launches_slice_b": launches_b,
         "launches_ell": launches_ell,
         "launches_bnb": launches_bnb,
-        "launches_api": launches_api,
-        "launches_cli": launches_cli,
+        "launches_api": launches_api - per_lane_api,
+        "launches_cli": launches_cli - per_lane_cli,
         "launches_mesh": launches_mesh,
         "launches_tp": launches_tp,
         "max_abs_err": kernel_err,
@@ -1383,6 +1611,36 @@ def main() -> int:
             f"{key}_{name}": (times[label] + (gram_bound(*shape)[0],))[i]
             for name, (label, shape) in slabs.items()
             for i, key in enumerate(("ms", "plain_ms", "library_ms", "bound_ms"))
+        },
+    }, {
+        "name": "gram_per_lane",
+        "route": "cuda",
+        "source": "sypha_tpu_torch/csrc/gram.cu",
+        "replaces": "sypha_tpu/ops/pallas_gram.py:40",
+        "launches": launches_9a,
+        "launches_scpnre": launches_9b,
+        "launches_cg": launches_9c,
+        "launches_api": per_lane_api,
+        "launches_cli": per_lane_cli,
+        "launches_mesh": launches_mesh_lanes,
+        "max_abs_err": kernel_err_pl,
+        "ms": times_pl["per-lane cell A"][0],
+        "plain_ms": times_pl["per-lane cell A"][1],
+        "bound_ms": bound_pl_a,
+        "bound_by": bound_by_pl_a,
+        "library_ms": times_pl["per-lane cell A"][2],
+        "shape": [128, 200, 1280],
+        "design": "bf16x6 mma.sync SYRK, A lane stride m n",
+        "bound_ms_bf16x6": bf16_pl_a,
+        "max_entry_rel_err": entry_err_pl,
+        "plain_max_entry_rel_err": plain_entry_err_pl,
+        **{
+            f"{key}_{name}": (times_pl[label] + gram_bound(*shape, per_lane=True)[:2])[i]
+            for name, (label, shape) in {
+                "cell_b": ("per-lane cell B", (64, 504, 5504)),
+                "b16": ("per-lane full range", (16, 504, 5504)),
+            }.items()
+            for i, key in enumerate(("ms", "plain_ms", "library_ms", "bound_ms", "bound_by"))
         },
     }]}))
     print(card)

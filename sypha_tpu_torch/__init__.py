@@ -1,8 +1,9 @@
 """sypha_tpu_torch: the PyTorch / CUDA port of sypha_tpu.
 
 The LP and MILP paths of the JAX package (sypha_tpu), on PyTorch: read an
-SCP instance, pad its standard form (dense or padded ELL), solve many LP
-lanes that share one constraint matrix with the Mehrotra IPM, and run
+SCP instance, pad its standard form (dense or padded ELL), solve stacked
+LPs with the per-lane Mehrotra IPM and many LP lanes that share one
+constraint matrix with the shared-matrix one, and run
 branch and bound with presolve, heuristics, cuts and the exact-cover
 closure over batched node windows.  The user entry points are those of the
 JAX package: ``solve_lp``/``solve_lp_batch``, the OR-Tools-style ``Solver``
@@ -24,6 +25,7 @@ from sypha_tpu_torch.core.problem import PaddedLp, ScpModel
 from sypha_tpu_torch.core.status import IpmStatus, MilpStatus
 from sypha_tpu_torch.io.scp_reader import parse_scp_text, read_scp_file
 from sypha_tpu_torch.io.standard_form import pad_lp, scp_standard_form, stack_lps
+from sypha_tpu_torch.ipm.dense import initial_point, mehrotra_solve
 from sypha_tpu_torch.ipm.driver import IpmResult, solve_lp, solve_lp_batch
 from sypha_tpu_torch.ipm.node_batch import solve_node_batch
 from sypha_tpu_torch.ipm.shared import (
@@ -65,6 +67,8 @@ __all__ = [
     "scp_standard_form",
     "stack_lps",
     "IpmResult",
+    "initial_point",
+    "mehrotra_solve",
     "solve_lp",
     "solve_lp_batch",
     "solve_node_batch",

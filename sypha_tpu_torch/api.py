@@ -715,10 +715,11 @@ class Solver:
                 if spi is None:
                     chunk = max(2, min(total_cap - done, cfg.bnb.iter_chunk))
                 else:
-                    chunk = max(2, min(
-                        total_cap - done,
-                        int(cfg.bnb.iter_chunk_target_sec / max(spi, 1e-6)),
-                    ))
+                    # sized to the chunk target, and never planned to run
+                    # past the deadline: a hard limit shorter than the
+                    # target overshoots by at most the 2-iteration minimum
+                    budget = min(cfg.bnb.iter_chunk_target_sec, deadline - time.monotonic())
+                    chunk = max(2, min(total_cap - done, int(budget / max(spi, 1e-6))))
                 t_c = time.monotonic()
                 st, x_full, pobj, dobj = solve_node_batch(
                     lp, fix0, fix1, cfg.ipm, None, resume, done + chunk
@@ -748,8 +749,14 @@ class Solver:
             z = torch.zeros((B, np_), dtype=torch.float64, device=dev)
             st0, *_ = solve_node_batch(lp, z, z, cfg.ipm, None, None, 1)
             st0.status.cpu()
+            t_it = time.monotonic()
             st1, *_ = solve_node_batch(lp, z, z, cfg.ipm, None, st0, 2)
             st1.status.cpu()
+            if limit > 0:
+                # the resumed iteration sizes the rung's first deadline
+                # chunk; without it that chunk is iter_chunk iterations
+                # long whatever they cost
+                sec_per_iter[B] = time.monotonic() - t_it
         self._compile_time = time.monotonic() - t_c0
 
         t0 = time.monotonic()

@@ -1,8 +1,10 @@
 // Batched column-scaled Gram matrices on Hopper (sm_90a):
 //
-//     M[b, i, j] = sum_k (A[i, k] * w[b, k]) * (A[j, k] * w[b, k])
+//     M[b, i, j] = sum_k (A_b[i, k] * w[b, k]) * (A_b[j, k] * w[b, k])
 //
-// A: [m, n] f32 (shared by every lane), w: [B, n] f32, M: [B, m, m] f32.
+// A: [m, n] f32 shared by every lane (A_b = A, lane stride 0), or [B, m, n]
+// f32 with a matrix per lane (A_b = A + b m n, lane stride m n); w: [B, n]
+// f32; M: [B, m, m] f32.
 //
 // Replaces the Pallas TPU kernel sypha_tpu/ops/pallas_gram.py:pallas_gram,
 // which formed the same matrices from a materialised [B, m, n] Aw = A * w
@@ -10,9 +12,13 @@
 // itself several bf16 passes of the matrix unit.
 //
 // What bounds it on this card: per lane the kernel does 2 m^2 n FLOPs and
-// reads m n floats of A (the same A for every lane, so it stays in the 50 MB
-// L2) plus n floats of w.  At the main path's shapes (m = 200, n = 1280 and
-// m = 504, n = 5504) that is hundreds of FLOPs per byte, so it is bound by
+// reads n floats of w and m n floats of A.  A shared A is read by every lane
+// and stays in the 50 MB L2, so only one copy crosses HBM.  A per-lane A
+// crosses HBM once per lane, 4 B m n bytes in all (about 710 MB at 64 lanes
+// of 504 x 5504); the lane's tiles are neighbours on grid.x, so they run
+// together and share each row block through L2.  At the main path's shapes
+// (m = 200, n = 1280 and m = 504, n = 5504) that is still 50-125 FLOPs per
+// byte for a per-lane A and hundreds for a shared one, so it is bound by
 // arithmetic.  fp32 FMAs on the CUDA cores give about 67 TFLOP/s; the bf16
 // tensor cores give 989.  The f32 Cholesky that consumes M needs products
 // good to f32 (TF32 or a single bf16 pass breaks it).
@@ -246,7 +252,7 @@ __device__ __forceinline__ void mma_chunk(float (&acc)[2][4][4], const Split& s,
 template <int kVec>
 __global__ void __launch_bounds__(kThreads)
     gram_kernel(const float* __restrict__ A, const float* __restrict__ w,
-                float* __restrict__ M, int m, int n) {
+                float* __restrict__ M, int m, int n, long long a_stride) {
   extern __shared__ __align__(16) unsigned char smem_bytes[];
   Smem& smem = *reinterpret_cast<Smem*>(smem_bytes);
 
@@ -260,6 +266,7 @@ __global__ void __launch_bounds__(kThreads)
   const int i0 = ti * kTile;
   const int j0 = tj * kTile;
   const int b = blockIdx.y;
+  const float* Ab = A + static_cast<size_t>(b) * a_stride;
   const float* wb = w + static_cast<size_t>(b) * n;
 
   const int warp = threadIdx.x / 32;
@@ -273,9 +280,9 @@ __global__ void __launch_bounds__(kThreads)
   // split[c % 2] one step ahead, and multiplied in step c
   Pipe& pipe = smem.pipe;
   const int chunks = (n + kChunk - 1) / kChunk;
-  load_chunk<kVec>(pipe.raw[0], A, wb, i0, j0, diag, m, n, 0);
+  load_chunk<kVec>(pipe.raw[0], Ab, wb, i0, j0, diag, m, n, 0);
   cp_async_commit();
-  load_chunk<kVec>(pipe.raw[1], A, wb, i0, j0, diag, m, n, kChunk);
+  load_chunk<kVec>(pipe.raw[1], Ab, wb, i0, j0, diag, m, n, kChunk);
   cp_async_commit();
   cp_async_wait<1>();
   __syncthreads();
@@ -288,7 +295,7 @@ __global__ void __launch_bounds__(kThreads)
     cp_async_wait<0>();
     __syncthreads();
     if (c + 2 < chunks) {
-      load_chunk<kVec>(pipe.raw[c % 2], A, wb, i0, j0, diag, m, n, (c + 2) * kChunk);
+      load_chunk<kVec>(pipe.raw[c % 2], Ab, wb, i0, j0, diag, m, n, (c + 2) * kChunk);
       cp_async_commit();
     }
     // MMAs first: the tensor cores work through them while the warp splits
@@ -335,27 +342,33 @@ __global__ void __launch_bounds__(kThreads)
 
 template <int kVec>
 cudaError_t launch(const float* A, const float* w, float* M, int B, int m, int n,
-                   cudaStream_t stream) {
+                   long long a_stride, cudaStream_t stream) {
   constexpr int kBytes = sizeof(Smem);  // above the 48 KB static limit
   cudaError_t err = cudaFuncSetAttribute(gram_kernel<kVec>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
   if (err != cudaSuccess) return err;
   const int tiles = (m + kTile - 1) / kTile;
   const dim3 grid(tiles * (tiles + 1) / 2, B);
-  gram_kernel<kVec><<<grid, kThreads, kBytes, stream>>>(A, w, M, m, n);
+  gram_kernel<kVec><<<grid, kThreads, kBytes, stream>>>(A, w, M, m, n, a_stride);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// Launches the kernel on `stream` of `device`.  Returns cudaGetLastError()
-// after the launch (0 on success); the caller owns every buffer.
+// Launches the kernel on `stream` of `device`.  `a_stride` is the distance
+// in floats between the A of lane b and of lane b + 1: 0 for a shared A,
+// m n for one A per lane.  Returns cudaGetLastError() after the launch (0 on
+// success); the caller owns every buffer.
 extern "C" int sypha_gram_f32(const float* A, const float* w, float* M, int B, int m, int n,
-                              int device, cudaStream_t stream) {
+                              long long a_stride, int device, cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const bool aligned = n % 4 == 0 && reinterpret_cast<uintptr_t>(A) % 16 == 0 &&
+  // 16-byte copies need every row of every lane's A and of w on a 16-byte
+  // boundary: n % 4 == 0 and a_stride % 4 == 0 keep the base's alignment
+  const bool aligned = n % 4 == 0 && a_stride % 4 == 0 &&
+                       reinterpret_cast<uintptr_t>(A) % 16 == 0 &&
                        reinterpret_cast<uintptr_t>(w) % 16 == 0;
-  err = aligned ? launch<4>(A, w, M, B, m, n, stream) : launch<1>(A, w, M, B, m, n, stream);
+  err = aligned ? launch<4>(A, w, M, B, m, n, a_stride, stream)
+                : launch<1>(A, w, M, B, m, n, a_stride, stream);
   return static_cast<int>(err);
 }

@@ -1,20 +1,23 @@
 """Solve drivers: one padded LP, or a stacked batch of them.
 
-The port of sypha_tpu/ipm/driver.py on the port's one IPM engine,
-``mehrotra_solve_shared``: the JAX package's dense single-LP IPM
-(``ipm/dense.mehrotra_solve``) is not ported as a second engine.  A single
-LP is a one-lane shared batch, so on the card every solve forms its normal
-matrix with the Gram kernel.  A stacked batch (``io.standard_form.stack_lps``,
-where lanes may carry different ``A``) is split into groups of lanes with
-equal ``A`` and ``row_pad``, and each group is one shared-matrix call.
+The port of sypha_tpu/ipm/driver.py.  As in the JAX package, both run the
+per-lane dense IPM (ipm.dense.mehrotra_solve): ``solve_lp`` on a one-lane
+stack, ``solve_lp_batch`` in one call over the whole stack, each lane with
+its own ``A`` (where the JAX package jits the engine, and vmaps it over the
+stack).  On the card every iteration forms the lanes' normal matrices with
+the Gram kernel in its per-lane form.  ``solve_lp`` also takes a padded-ELL
+LP (io.standard_form.pad_standard_form_ell), which the JAX driver does not:
+that runs as a one-lane batch of the shared-matrix engine
+(ipm.shared.mehrotra_solve_shared), the engine of the ELL operator.
 
-Results come back to the host in one packed device-to-host copy per group
-(the per-lane scalars, the iterates, ``c`` and ``b``), where the JAX
-package fetched each field.
+Results come back to the host in one packed device-to-host copy (the
+per-lane scalars, the iterates, ``c`` and ``b``), where the JAX package
+fetched each field.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import List, Optional
 
@@ -24,12 +27,9 @@ import torch
 from sypha_tpu_torch.config import IpmOptions
 from sypha_tpu_torch.core.problem import PaddedLp
 from sypha_tpu_torch.core.status import IpmStatus
-from sypha_tpu_torch.ipm.shared import (
-    IpmState,
-    SharedLpBatch,
-    make_shared_batch,
-    mehrotra_solve_shared,
-)
+from sypha_tpu_torch.ipm.dense import mehrotra_solve
+from sypha_tpu_torch.ipm.shared import IpmState, make_shared_batch, mehrotra_solve_shared
+from sypha_tpu_torch.ops.ell import EllMatrix
 
 
 @dataclass
@@ -56,16 +56,16 @@ class IpmResult:
 _SCALARS = ("status", "iterations", "mu", "gap", "res_p", "res_d")
 
 
-def _results(batch: SharedLpBatch, st: IpmState, n_real, m_real) -> List[IpmResult]:
-    """Per-lane IpmResults of one shared call from ONE device-to-host copy:
-    the lane scalars, n_real/m_real, x, y, c and b packed into one f64
-    [B, k] tensor (int32 values are exact in f64) and split on the host."""
+def _results(c: torch.Tensor, b: torch.Tensor, st: IpmState, n_real, m_real) -> List[IpmResult]:
+    """Per-lane IpmResults from ONE device-to-host copy: the lane scalars,
+    n_real/m_real, x, y and the lanes' c [B, n] and b [B, m] packed into one
+    f64 [B, k] tensor (int32 values are exact in f64) and split on the host."""
     B = st.x.shape[0]
     f64 = torch.float64
     scalars = [getattr(st, k).to(f64) for k in _SCALARS]
     dims = [torch.as_tensor(v, device=st.x.device).to(f64).expand(B) for v in (n_real, m_real)]
     packed = torch.cat(
-        [torch.stack(scalars + dims, dim=1), st.x, st.y, batch.c, batch.b], dim=1
+        [torch.stack(scalars + dims, dim=1), st.x, st.y, c, b], dim=1
     ).cpu().numpy()
     k = len(_SCALARS) + 2
     n, m = st.x.shape[1], st.y.shape[1]
@@ -98,39 +98,12 @@ def solve_lp(lp: PaddedLp, opts: Optional[IpmOptions] = None) -> IpmResult:
     """Solve one padded LP (dense or ELL ``A``, on the device it lives on);
     returns a host-side IpmResult."""
     opts = opts or IpmOptions()
-    batch = make_shared_batch(lp, 1)
-    st = mehrotra_solve_shared(batch, opts)
-    return _results(batch, st, lp.n_real, lp.m_real)[0]
-
-
-def _groups(lp: PaddedLp) -> List[List[int]]:
-    """Lanes of a stacked dense PaddedLp grouped by equal (A, row_pad), in
-    order of first appearance; one pass of ``torch.equal`` against each
-    group's first lane."""
-    groups: List[List[int]] = []
-    for i in range(lp.A.shape[0]):
-        for g in groups:
-            r = g[0]
-            if torch.equal(lp.A[r], lp.A[i]) and torch.equal(lp.row_pad[r], lp.row_pad[i]):
-                g.append(i)
-                break
-        else:
-            groups.append([i])
-    return groups
-
-
-def _group_batch(lp: PaddedLp, idx: torch.Tensor, first: int) -> SharedLpBatch:
-    n = lp.n_pad
-    col = torch.arange(n, device=lp.c.device)
-    mask = (col[None, :] < lp.n_real[idx][:, None]).to(lp.c.dtype)
-    return SharedLpBatch(
-        A=lp.A[first],
-        b=lp.b[idx],
-        c=lp.c[idx],
-        col_mask=mask,
-        row_pad=lp.row_pad[first],
-        obj_offset=torch.zeros((len(idx),), dtype=lp.c.dtype, device=lp.c.device),
-    )
+    if isinstance(lp.A, EllMatrix):
+        batch = make_shared_batch(lp, 1)
+        st = mehrotra_solve_shared(batch, opts)
+        return _results(batch.c, batch.b, st, lp.n_real, lp.m_real)[0]
+    one = PaddedLp(**{f.name: getattr(lp, f.name)[None] for f in dataclasses.fields(lp)})
+    return _results(one.c, one.b, mehrotra_solve(one, opts), one.n_real, one.m_real)[0]
 
 
 def solve_lp_batch(
@@ -139,45 +112,16 @@ def solve_lp_batch(
     warm_start: Optional[tuple] = None,
     as_results: bool = True,
 ):
-    """Solve a stacked batch of padded LPs (leading [B] axis on every leaf,
-    as ``stack_lps`` builds it; lanes may have different ``A``).
+    """Solve a stacked batch of dense padded LPs (leading [B] axis on every
+    field, as ``stack_lps`` builds it; lanes may have different ``A``) in
+    one call of the per-lane engine.
 
-    Lanes with equal ``A`` (and pad rows) solve together as one
-    shared-matrix call.  ``warm_start`` is an optional (x0, y0, s0) batch,
-    split the same way.  Results come back in the original lane order: a
-    list of IpmResults, or with ``as_results=False`` one IpmState with [B]
-    leaves, on the device.
+    ``warm_start`` is an optional (x0, y0, s0) batch.  Returns a list of
+    IpmResults in lane order, or with ``as_results=False`` the IpmState with
+    [B] leaves, on the device.
     """
     opts = opts or IpmOptions()
-    if lp.A.ndim != 3:
-        raise ValueError("solve_lp_batch expects a stacked PaddedLp with a leading [B] axis")
-    dev = lp.c.device
-    B = lp.A.shape[0]
-    parts = []
-    for g in _groups(lp):
-        idx = torch.tensor(g, dtype=torch.long, device=dev)
-        batch = _group_batch(lp, idx, g[0])
-        if warm_start is not None:
-            x0, y0, s0 = (torch.as_tensor(v, device=dev)[idx] for v in warm_start)
-            st = mehrotra_solve_shared(batch, opts, x0, y0, s0)
-        else:
-            st = mehrotra_solve_shared(batch, opts)
-        parts.append((g, idx, batch, st))
-
+    st = mehrotra_solve(lp, opts, *(warm_start or ()))
     if not as_results:
-        if len(parts) == 1 and parts[0][0] == list(range(B)):
-            return parts[0][3]
-        fields = {}
-        for name in IpmState.__dataclass_fields__:
-            like = getattr(parts[0][3], name)
-            out = torch.empty((B,) + tuple(like.shape[1:]), dtype=like.dtype, device=dev)
-            for _, idx, _, st in parts:
-                out[idx] = getattr(st, name)
-            fields[name] = out
-        return IpmState(**fields)
-
-    results: List[Optional[IpmResult]] = [None] * B
-    for g, idx, batch, st in parts:
-        for lane, res in zip(g, _results(batch, st, lp.n_real[idx], lp.m_real[idx])):
-            results[lane] = res
-    return results
+        return st
+    return _results(lp.c, lp.b, st, lp.n_real, lp.m_real)

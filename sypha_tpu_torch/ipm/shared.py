@@ -59,8 +59,7 @@ from sypha_tpu_torch.core.status import IpmStatus
 from sypha_tpu_torch.io.standard_form import bucket_dims, pad_lp, pad_standard_form_ell
 from sypha_tpu_torch.ops.ell import EllMatrix
 from sypha_tpu_torch.ops.gram import gram
-from sypha_tpu_torch.ops.linalg import block_chol_inverse
-from sypha_tpu_torch.ops.spd import pcg_solve
+from sypha_tpu_torch.ops.spd import NormalEqFactor, _apply_normal_precond, factor_gram, pcg_solve
 
 
 @dataclass(frozen=True)
@@ -279,23 +278,12 @@ def _shared_factor(A32, d2_eff, row_reg, ft, ridge: float, leaf_size: int, group
     else:
         Aw = A32[None, :, :] * w[:, None, :]
         M = torch.einsum("bik,bjk->bij", Aw, Aw)
-    M = psum(M)
-    m = M.shape[-1]
-    M = M + torch.diag_embed(row_reg.to(ft))
-    diag = torch.diagonal(M, dim1=-2, dim2=-1)
-    dinv = torch.rsqrt(torch.clamp(diag, min=1e-30))
-    Ms = M * dinv[:, None, :] * dinv[:, :, None]
-    Ms = Ms + ridge * torch.eye(m, dtype=ft, device=M.device)
-    Linv = block_chol_inverse(Ms, leaf_size=leaf_size)
-    return Linv, dinv
+    return factor_gram(psum(M), row_reg, ridge, leaf_size)
 
 
 def _precond(Linv, dinv, r):
     """P r = Dg L^-T L^-1 Dg r per lane (batched GEMVs in the factor dtype)."""
-    rf = dinv * r.to(dinv.dtype)
-    z = torch.einsum("bij,bj->bi", Linv, rf)
-    z = torch.einsum("bji,bj->bi", Linv, z)
-    return (dinv * z).to(r.dtype)
+    return _apply_normal_precond(NormalEqFactor(Linv=Linv, dinv=dinv), r)
 
 
 def _pcg(Linv, dinv, matvec, f, tol, max_steps: int, agree=bool):

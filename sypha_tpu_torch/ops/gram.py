@@ -1,4 +1,4 @@
-"""Batched column-scaled Gram matrices  M_b = (A * w_b) (A * w_b)^T.
+"""Batched column-scaled Gram matrices  M_b = (A_b * w_b) (A_b * w_b)^T.
 
 The per-iteration normal-matrix formation is the IPM's largest FLOP block
 (O(B m^2 n) f32).  ``gram`` is the port of the Pallas TPU kernel
@@ -7,7 +7,9 @@ the hand-written Hopper kernel in ``sypha_tpu_torch/csrc/gram.cu`` (see the
 note there): a SYRK on the bf16 tensor cores that splits each f32 operand
 into three bf16 pieces and keeps the six products that carry f32 precision.
 It applies the column scale while staging tiles of A, so the [B, m, n]
-``Aw`` temporary that the JAX path built never exists.  On a CPU
+``Aw`` temporary that the JAX path built never exists.  ``A`` is one matrix
+shared by every lane ([m, n], the shared-matrix IPM) or one per lane
+([B, m, n], the per-lane IPM, the Pallas kernel's own contract).  On a CPU
 tensor it computes the same product with ``gram_reference``, the plain
 PyTorch version.  There is no fallback from the kernel to the plain version
 on the card.
@@ -28,8 +30,9 @@ _MAX_LANES = 65535
 
 
 def gram_reference(A32: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Plain version: [m, n] f32, [B, n] f32 -> [B, m, m] f32 (f32 sums)."""
-    Aw = A32[None, :, :] * w[:, None, :]
+    """Plain version: [m, n] or [B, m, n] f32, [B, n] f32 -> [B, m, m] f32
+    (f32 sums)."""
+    Aw = A32 * w[:, None, :]
     return torch.einsum("bik,bjk->bij", Aw, Aw)
 
 
@@ -40,7 +43,10 @@ _count_lock = threading.Lock()
 @functools.cache
 def _bind():
     fn = load_library("gram").sypha_gram_f32
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    # A, w, M; B, m, n; A's lane stride in floats; device; stream
+    fn.argtypes = (
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+    )
     fn.restype = ctypes.c_int
     return fn
 
@@ -57,9 +63,12 @@ def load_kernel():
 def _check(A32: torch.Tensor, w: torch.Tensor):
     if A32.dtype != torch.float32 or w.dtype != torch.float32:
         raise TypeError(f"gram takes float32 tensors, got {A32.dtype} and {w.dtype}")
-    if A32.ndim != 2 or w.ndim != 2 or A32.shape[1] != w.shape[1]:
+    shared = A32.ndim == 2 and w.ndim == 2 and A32.shape[1] == w.shape[1]
+    per_lane = A32.ndim == 3 and w.ndim == 2 and A32.shape[::2] == w.shape
+    if not (shared or per_lane):
         raise ValueError(
-            f"gram takes A32 [m, n] and w [B, n], got {tuple(A32.shape)} and {tuple(w.shape)}"
+            f"gram takes A32 [m, n] or [B, m, n] and w [B, n], got {tuple(A32.shape)} and "
+            f"{tuple(w.shape)}"
         )
     if A32.device != w.device:
         raise ValueError(f"gram operands on different devices: {A32.device}, {w.device}")
@@ -68,12 +77,14 @@ def _check(A32: torch.Tensor, w: torch.Tensor):
 
 
 def gram(A32: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """M[b, i, j] = sum_k (A32[i, k] w[b, k]) (A32[j, k] w[b, k]), f32.
+    """M[b, i, j] = sum_k (A[i, k] w[b, k]) (A[j, k] w[b, k]), f32, where A
+    is A32 (shared) or A32[b] (per lane).
 
-    A32: [m, n] f32 contiguous; w: [B, n] f32 contiguous, same device.
-    CUDA tensors go through the hand-written kernel (``gram.launches`` counts
-    its launches, exactly under host threads); CPU tensors through
-    ``gram_reference``.
+    A32: [m, n] or [B, m, n] f32 contiguous; w: [B, n] f32 contiguous, same
+    device.  CUDA tensors go through the hand-written kernel:
+    ``gram.launches`` counts its launches and ``gram.launches_per_lane``
+    those of them in the per-lane form, exactly under host threads.  CPU
+    tensors go through ``gram_reference``.
     """
     _check(A32, w)
     if A32.device.type == "cpu":
@@ -81,7 +92,8 @@ def gram(A32: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if A32.device.type != "cuda":
         raise ValueError(f"gram runs on cuda or cpu tensors, not {A32.device}")
     B, n = w.shape
-    m = A32.shape[0]
+    m = A32.shape[-2]
+    a_stride = m * n if A32.ndim == 3 else 0
     if B > _MAX_LANES:
         raise ValueError(f"gram takes at most {_MAX_LANES} lanes, got {B}")
     M = torch.empty((B, m, m), dtype=torch.float32, device=A32.device)
@@ -89,12 +101,16 @@ def gram(A32: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         return M
     device = A32.device.index if A32.device.index is not None else torch.cuda.current_device()
     stream = torch.cuda.current_stream(device).cuda_stream
-    err = load_kernel()(A32.data_ptr(), w.data_ptr(), M.data_ptr(), B, m, n, device, stream)
+    err = load_kernel()(
+        A32.data_ptr(), w.data_ptr(), M.data_ptr(), B, m, n, a_stride, device, stream
+    )
     if err != 0:
         raise RuntimeError(f"gram kernel launch failed with CUDA error {err}")
     with _count_lock:
         gram.launches += 1
+        gram.launches_per_lane += int(a_stride > 0)
     return M
 
 
 gram.launches = 0
+gram.launches_per_lane = 0

@@ -1,6 +1,7 @@
 """Batched inverse Cholesky factor by 2x2 block recursion.
 
-The port of sypha_tpu/ops/linalg.py:block_chol_inverse, with the same
+The port of sypha_tpu/ops/linalg.py (``block_chol_inverse``,
+``chol_inverse``, ``spd_solve_with_inv``), with the same
 recursion, leaf size and split:
 
     M = [[M11, M21^T], [M21, M22]],   L = chol(M) = [[L11, 0], [L21, L22]]
@@ -71,3 +72,15 @@ def block_chol_inverse(M: torch.Tensor, leaf_size: int = 64) -> torch.Tensor:
     )
     bot = torch.cat([B, L22inv], dim=-1)
     return torch.cat([top, bot], dim=-2)
+
+
+def chol_inverse(M: torch.Tensor, leaf_size: int = 64) -> torch.Tensor:
+    """``block_chol_inverse`` under the JAX package's name for its jitted
+    entry (eager here: there is nothing to compile)."""
+    return block_chol_inverse(M, leaf_size)
+
+
+def spd_solve_with_inv(Linv: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
+    """Solve M x = f given Linv = L^{-1}: x = L^{-T} (L^{-1} f) as two GEMVs."""
+    z = torch.einsum("...ij,...j->...i", Linv, f)
+    return torch.einsum("...ji,...j->...i", Linv, z)

@@ -13,10 +13,13 @@ The port of sypha_tpu/parallel/mesh.py.  Two modes, as in the JAX package:
   syncs of several cards overlap.  Only scalar statistics are pooled
   (``pooled_stats``), and the shards' results are gathered on the mesh's
   first device.  A shard computes exactly what it computes when the shards
-  run one after another; it is NOT the unsharded solve, because a group's
-  PCG steps every lane of the group until all of them converge.  A sharded
-  result equals the concatenation of its shards each solved alone, and the
-  JAX package's sharded result at the same mesh size.
+  run one after another.  For the shared-matrix engine that is NOT the
+  unsharded solve, because its PCG steps every lane of the batch until all
+  of them converge; a sharded result equals the concatenation of its shards
+  each solved alone, and the JAX package's sharded result at the same mesh
+  size.  The per-lane engine of ``solve_lp_batch_sharded`` steps each lane
+  on its own, so there a shard differs from the unsharded solve only where
+  a batched library call rounds differently at another batch size.
 
 * **Tensor parallelism** (``solve_shared_batch_tensor_parallel``): the
   column axis of one batch is split over the ranks of a
@@ -300,10 +303,10 @@ def solve_lp_batch_sharded(
     mesh: Optional[Mesh] = None,
 ):
     """Solve a stacked batch of LPs (lanes may have different A) lane-sharded
-    over the mesh: each device runs ``ipm.driver.solve_lp_batch`` on its
-    block, one shared-matrix solve per group of equal A.  (The JAX package
-    vmaps its dense per-lane IPM here; the port has one IPM engine.)
-    ``lp`` is a stacked PaddedLp or the shards ``shard_batch`` made of it.
+    over the mesh: each device runs ``ipm.driver.solve_lp_batch``, the
+    per-lane dense IPM (ipm.dense), on its block, as the JAX package vmaps
+    its dense IPM over each shard.  ``lp`` is a stacked PaddedLp or the
+    shards ``shard_batch`` made of it.
 
     Returns (IpmState of all lanes in their order, on the mesh's first
     device, (worst_gap, max_iters, n_converged))."""

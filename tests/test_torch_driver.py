@@ -1,13 +1,11 @@
 """The port's solve drivers (ipm.driver) against the JAX package on the CPU.
 
-``solve_lp`` runs the port's one IPM engine, ``mehrotra_solve_shared``, on a
-one-lane batch.  Against the JAX package's engine on the same one-lane batch:
-equal status and iterations, objectives within 1e-10 relative.  Against the
-JAX package's ``solve_lp``, its dense single-LP IPM, a different algorithm:
-equal status, objectives within 1e-8 relative (the IPM's own gap tolerance),
-iteration counts reported side by side.  ``solve_lp_batch`` groups lanes by
-their matrix: per-lane results equal ``solve_lp`` of each lane, one engine
-call per group."""
+``solve_lp`` and ``solve_lp_batch`` run the per-lane dense IPM
+(ipm.dense.mehrotra_solve), as the JAX package's drivers do: against JAX's
+``solve_lp`` and ``solve_lp_batch``, equal statuses and iterations,
+objectives within 1e-10 relative.  The port's shared-matrix engine on a
+one-lane batch is held to JAX's on the same batch.  ``solve_lp_batch`` is
+one engine call for the whole stack, whatever its lanes' matrices."""
 
 import pathlib
 
@@ -29,6 +27,7 @@ from sypha_tpu_torch.ipm import driver as tdriver
 from sypha_tpu_torch.ipm import shared as tshared
 from sypha_tpu_torch.ipm.shared import IpmState
 from sypha_tpu_torch.ops import gram as tgram
+from sypha_tpu_torch.ops import spd as tspd
 from sypha_tpu_torch.testing import synthetic_scp
 
 DATA = pathlib.Path(__file__).resolve().parent.parent / "data"
@@ -91,12 +90,17 @@ def _jax_shared_one_lane(jlp, opts):
 
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_solve_lp_matches_jax_shared_engine(name):
-    res = tdriver.solve_lp(CASES[name]("torch"))
-    status, iters, pobj, dobj = _jax_shared_one_lane(CASES[name]("jax"), jconfig.IpmOptions())
-    assert res.status == IpmStatus.CONVERGED and res.converged
-    assert (int(res.status), res.iterations) == (status, iters)
-    np.testing.assert_allclose(res.primal_objective, pobj, rtol=1e-10)
-    np.testing.assert_allclose(res.dual_objective, dobj, rtol=1e-10)
+    tlp = CASES[name]("torch")
+    tb = tshared.make_shared_batch(tlp, 1)
+    st = tshared.mehrotra_solve_shared(tb, tconfig.IpmOptions())
+    n, m = int(tlp.n_real), int(tlp.m_real)
+    pobj = float(tb.c[0, :n] @ st.x[0, :n])
+    dobj = float(tb.b[0, :m] @ st.y[0, :m])
+    status, iters, jpobj, jdobj = _jax_shared_one_lane(CASES[name]("jax"), jconfig.IpmOptions())
+    assert int(st.status[0]) == status == IpmStatus.CONVERGED
+    assert int(st.iterations[0]) == iters
+    np.testing.assert_allclose(pobj, jpobj, rtol=1e-10)
+    np.testing.assert_allclose(dobj, jdobj, rtol=1e-10)
 
 
 @pytest.mark.parametrize("name", sorted(CASES))
@@ -104,10 +108,10 @@ def test_solve_lp_matches_jax_dense_driver(name):
     tlp, jlp = CASES[name]("torch"), CASES[name]("jax")
     res = tdriver.solve_lp(tlp)
     ref = jdriver.solve_lp(jlp)
-    side_by_side = f"iterations: port {res.iterations}, JAX dense {ref.iterations}"
-    assert int(res.status) == int(ref.status), side_by_side
-    np.testing.assert_allclose(res.primal_objective, ref.primal_objective, rtol=1e-8, err_msg=side_by_side)
-    np.testing.assert_allclose(res.dual_objective, ref.dual_objective, rtol=1e-8, err_msg=side_by_side)
+    assert res.status == IpmStatus.CONVERGED and res.converged
+    assert (int(res.status), res.iterations) == (int(ref.status), ref.iterations)
+    np.testing.assert_allclose(res.primal_objective, ref.primal_objective, rtol=1e-10)
+    np.testing.assert_allclose(res.dual_objective, ref.dual_objective, rtol=1e-10)
     assert res.x.shape == ref.x.shape and res.y.shape == ref.y.shape
     assert isinstance(res.x, np.ndarray) and res.x.dtype == np.float64
     for f in ("mu", "gap", "res_primal", "res_dual"):
@@ -136,7 +140,7 @@ def test_infeasible_lp_never_converges():
     assert int(ref.status) != int(IpmStatus.CONVERGED), ref.status
 
 
-# lanes 0..5 carry the instances A, B, A, C, B, A: groups of sizes 3, 2, 1
+# lanes 0..5 carry the instances A, B, A, C, B, A
 LANE_TEXTS = [synthetic_scp(24, 120, 0.1, s) for s in (3, 5, 3, 7, 5, 3)]
 
 
@@ -149,41 +153,43 @@ def _stacked(pkg):
 
 
 def test_solve_lp_batch_groups_lanes_by_matrix(monkeypatch):
+    """Lanes with repeated and with distinct matrices: one engine call for
+    the whole stack, each lane's Gram formed from its own matrix; per-lane
+    statuses and iterations equal JAX's solve_lp_batch, objectives within
+    1e-10, and each lane equals solve_lp of its instance."""
     lp = _stacked("torch")
-    lanes = []
+    grams = []
 
     def counted(A32, w):
-        lanes.append(w.shape[0])
+        grams.append(tuple(A32.shape))
         return tgram.gram_reference(A32, w)
 
-    monkeypatch.setattr(tshared, "gram", counted)
+    monkeypatch.setattr(tspd, "gram", counted)
     calls = []
-    engine = tdriver.mehrotra_solve_shared
+    engine = tdriver.mehrotra_solve
 
-    def counted_engine(batch, *a, **kw):
-        calls.append(batch.n_lanes)
-        return engine(batch, *a, **kw)
+    def counted_engine(lp, *a, **kw):
+        calls.append(lp.A.shape[0])
+        return engine(lp, *a, **kw)
 
-    monkeypatch.setattr(tdriver, "mehrotra_solve_shared", counted_engine)
+    monkeypatch.setattr(tdriver, "mehrotra_solve", counted_engine)
     results = tdriver.solve_lp_batch(lp)
-    # one engine call per group of equal A, in order of first appearance
-    assert calls == [3, 2, 1]
-    runs = [k for i, k in enumerate(lanes) if i == 0 or lanes[i - 1] != k]
-    assert runs == [3, 2, 1], lanes
+    assert calls == [len(LANE_TEXTS)]
+    assert grams and set(grams) == {(len(LANE_TEXTS), 32, 256)}, grams
     assert len(results) == len(LANE_TEXTS)
-
-    for text, res in zip(LANE_TEXTS, results):
-        single = tdriver.solve_lp(tsf.pad_lp(treader.parse_scp_text(text), m_pad=32, n_pad=256, device="cpu"))
-        assert res.status == single.status == IpmStatus.CONVERGED
-        assert abs(res.iterations - single.iterations) <= 1
-        np.testing.assert_allclose(res.primal_objective, single.primal_objective, rtol=1e-10)
-        np.testing.assert_allclose(res.dual_objective, single.dual_objective, rtol=1e-10)
-        np.testing.assert_allclose(res.x, single.x, rtol=0, atol=1e-8)
 
     ref = jdriver.solve_lp_batch(_stacked("jax"))
     for res, j in zip(results, ref):
-        assert int(res.status) == int(j.status)
-        np.testing.assert_allclose(res.primal_objective, j.primal_objective, rtol=1e-8)
+        assert res.status == IpmStatus.CONVERGED
+        assert (int(res.status), res.iterations) == (int(j.status), j.iterations)
+        np.testing.assert_allclose(res.primal_objective, j.primal_objective, rtol=1e-10)
+        np.testing.assert_allclose(res.dual_objective, j.dual_objective, rtol=1e-10)
+
+    for text, res in zip(LANE_TEXTS, results):
+        single = tdriver.solve_lp(tsf.pad_lp(treader.parse_scp_text(text), m_pad=32, n_pad=256, device="cpu"))
+        assert (single.status, single.iterations) == (res.status, res.iterations)
+        np.testing.assert_allclose(res.primal_objective, single.primal_objective, rtol=1e-10)
+        np.testing.assert_allclose(res.x, single.x, rtol=0, atol=1e-8)
 
 
 def test_solve_lp_batch_warm_start_and_state():

@@ -66,6 +66,57 @@ def test_gram_kernel_matches_plain_version_on_card(cuda_device, B, m, n, log10_d
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize(
+    "B,m,n,log10_d2",
+    [
+        (3, 37, 301, (-12, 6)),
+        (4, 40, 256, (-12, 6)),
+        (16, 504, 5504, (-30, 30)),
+    ],
+)
+def test_gram_kernel_per_lane_matches_plain_version_on_card(cuda_device, B, m, n, log10_d2):
+    """The per-lane form: a distinct A for every lane."""
+    rng = np.random.default_rng(B + m + n)
+    A32 = torch.from_numpy(rng.integers(-1, 2, size=(B, m, n)).astype(np.float32)).to(cuda_device)
+    w = np.sqrt(10.0 ** rng.uniform(*log10_d2, size=(B, n)))
+    w = torch.from_numpy(w.astype(np.float32)).to(cuda_device)
+    before = (tgram.gram.launches, tgram.gram.launches_per_lane)
+    got = tgram.gram(A32, w)
+    torch.cuda.synchronize()
+    assert (tgram.gram.launches, tgram.gram.launches_per_lane) == (before[0] + 1, before[1] + 1)
+    plain = tgram.gram_reference(A32, w)
+    Aw = A32.double() * w.double()[:, None]
+    want = Aw @ Aw.mT
+    bound = Aw.abs() @ Aw.abs().mT
+    scale = want.abs().amax(dim=(1, 2), keepdim=True)
+    assert ((got.double() - want).abs() <= 1e-5 * scale).all()
+    assert _entry_rel_err(got, want, bound) <= 4 * _entry_rel_err(plain, want, bound)
+    assert torch.equal(got, got.mT)
+    # lane b is the shared form of A32[b]
+    for b in (0, B - 1):
+        assert torch.equal(got[b], tgram.gram(A32[b].contiguous(), w[b : b + 1].contiguous())[0])
+
+
+@pytest.mark.cuda
+def test_per_lane_engine_on_card_matches_cpu(cuda_device):
+    texts = [synthetic_scp(40, 200, 0.1, s) for s in range(4)]
+    results = []
+    for device in ("cpu", cuda_device):
+        lp = st.stack_lps([st.pad_lp(st.parse_scp_text(t), m_pad=40, n_pad=256, device=device) for t in texts])
+        before = tgram.gram.launches_per_lane
+        state = st.mehrotra_solve(lp, st.IpmOptions())
+        launches = tgram.gram.launches_per_lane - before
+        obj = torch.sum(lp.c * state.x, dim=-1).cpu().numpy()
+        results.append((state.status.cpu().numpy(), state.iterations.cpu().numpy(), obj, launches))
+    (cpu_status, cpu_iters, cpu_obj, cpu_launches), (status, iters, obj, launches) = results
+    assert cpu_launches == 0
+    assert launches >= int(iters.max()) + 1
+    np.testing.assert_array_equal(status, cpu_status)
+    assert np.abs(iters - cpu_iters).max() <= 1
+    np.testing.assert_allclose(obj, cpu_obj, rtol=1e-8)
+
+
+@pytest.mark.cuda
 def test_slice_on_card_matches_cpu(cuda_device):
     model = st.parse_scp_text(synthetic_scp(40, 200, 0.1, 4))
     results = []

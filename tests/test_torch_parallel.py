@@ -3,10 +3,10 @@ seeded inputs through each package's sharded solves at the same mesh size.
 JAX shards over its 8 virtual CPU devices (tests/conftest.py); the port over
 CPU shards of ``make_mesh(k, device="cpu")``, each on a host thread.
 
-A sharded solve equals its shards solved alone (a group's PCG runs until
-every lane in it converges), so the port's sharded result is held to the
-JAX package's sharded result at the same mesh size, and bit for bit to its
-own shards solved one after another."""
+A sharded solve equals its shards solved alone (the shared-matrix
+engine's PCG runs until every lane of the batch converges), so the port's
+sharded result is held to the JAX package's sharded result at the same mesh
+size, and bit for bit to its own shards solved one after another."""
 
 import time
 
@@ -131,12 +131,16 @@ def test_solve_node_batch_sharded_matches_jax(k):
 
 @pytest.mark.parametrize("k", [2, 4])
 def test_solve_lp_batch_sharded_matches_jax(k):
-    """Distinct instances per lane: the JAX package vmaps its dense per-lane
-    IPM here, the port solves each group of equal A (here one lane each) on
-    its one engine, the shared-matrix IPM.  Statuses and objectives are held
-    to JAX's sharded call, iterations to JAX's shared engine lane by lane:
-    on seed 6 the JAX package's own two engines differ by one iteration
-    (dense 11, shared 12)."""
+    """Distinct instances per lane: both packages run their per-lane dense
+    IPM on each shard.  Statuses equal JAX's sharded call, objectives within
+    1e-10 and iterations equal lane by lane, but at a rounding knife edge: a
+    lane may take one iteration more or fewer (its objective then within
+    the IPM's 1e-8) only where the JAX package's own two engines disagree
+    on it.  Seed 6 is one: its endgame primal
+    residual sits at the 1e-8 gate, where the PCG's stopping step (tolerance
+    1e-10) decides it; JAX's dense IPM converges it in 11 iterations, JAX's
+    shared-matrix IPM in 12, and the port's dense IPM in 12 (11 with the
+    products summed in another order)."""
     texts = [synthetic_scp(40, 200, 0.1, seed=s) for s in range(LANES)]
     jlp = jsf.stack_lps([jsf.pad_lp(jreader.parse_scp_text(t), m_pad=40, n_pad=256) for t in texts])
     tlp = tsf.stack_lps(
@@ -147,19 +151,23 @@ def test_solve_lp_batch_sharded_matches_jax(k):
     tst, tstats = tmesh.solve_lp_batch_sharded(tlp, tconfig.IpmOptions(), tmesh.make_mesh(k, device=CPU))
     assert (_np(tst.status) == IpmStatus.CONVERGED).all()
     np.testing.assert_array_equal(_np(tst.status), _np(jst.status))
-    tobj = np.einsum("bn,bn->b", _np(tlp.c), _np(tst.x))
-    np.testing.assert_allclose(tobj, np.einsum("bn,bn->b", np.asarray(jlp.c), np.asarray(jst.x)), rtol=1e-8)
-    shared_iters = [
-        int(jshared.mehrotra_solve_shared(
-            jshared.make_shared_batch(jsf.pad_lp(jreader.parse_scp_text(t), m_pad=40, n_pad=256), 1),
+    t_it, j_it = _np(tst.iterations), _np(jst.iterations)
+    for lane in np.flatnonzero(t_it != j_it):
+        shared = jshared.mehrotra_solve_shared(
+            jshared.make_shared_batch(jsf.pad_lp(jreader.parse_scp_text(texts[lane]), m_pad=40, n_pad=256), 1),
             jconfig.IpmOptions(),
-        ).iterations[0])
-        for t in texts
-    ]
-    assert _np(tst.iterations).tolist() == shared_iters
-    assert np.abs(_np(tst.iterations) - np.asarray(jst.iterations)).max() <= 1
+        )
+        assert abs(int(t_it[lane]) - int(j_it[lane])) == 1, (lane, t_it, j_it)
+        assert int(shared.iterations[0]) != int(j_it[lane]), f"lane {lane}: not a knife edge of JAX's engines"
+    assert (t_it != j_it).sum() <= 1, (t_it, j_it)
+    tobj = np.einsum("bn,bn->b", _np(tlp.c), _np(tst.x))
+    jobj = np.einsum("bn,bn->b", np.asarray(jlp.c), np.asarray(jst.x))
+    same = t_it == j_it
+    np.testing.assert_allclose(tobj[same], jobj[same], rtol=1e-10)
+    # a lane stopped one iteration apart: both within the IPM's 1e-8 gap
+    np.testing.assert_allclose(tobj[~same], jobj[~same], rtol=1e-8)
     assert int(tstats[2]) == int(jstats[2]) == LANES
-    assert int(tstats[1]) == max(shared_iters)
+    assert int(tstats[1]) == int(t_it.max()) and int(jstats[1]) == int(j_it.max())
 
 
 def test_sharded_result_is_its_shards_solved_in_turn():
