@@ -61,7 +61,15 @@ checkout.  Phases, each printed as it runs:
      distinct scp4x-class LPs against HiGHS and against the plain Gram, the
      per-lane K1 counted from 0; (b) 8 distinct scpnre-class LPs against
      HiGHS; (c) (a)'s first 8 lanes on the Jacobi-CG strategy; walls and
-     iterations per lane.
+     iterations per lane;
+ 10. the grouped solve, bench.py's layout: (a) the kernel's grouped form
+     (one A per instance group of L lanes) against its plain version at
+     (10 x 128, 200, 1280) and a ragged shape; (b) 10 seeded scp4x-class
+     instances x 128 lanes through stack_shared_batches and one
+     mehrotra_solve_shared call, every lane against HiGHS; (c) the same
+     with the plain Gram, and each group alone on the ungrouped engine;
+     (d) ``python3 -m sypha_tpu_torch.bench`` as a subprocess, its JSON line
+     checked.
 
 Any failed check raises, and the script exits non-zero; without a CUDA card
 it exits non-zero before doing anything.  The last line is the JSON status
@@ -73,7 +81,8 @@ against the plain version, its times against the plain version and the
 one-call library einsum, and its bound (the larger of the f32 SYRK's FLOPs
 over the f32 peak and its bytes over HBM bandwidth), at the batched shapes
 and at the slab shapes; then the same for the kernel's per-lane form, whose
-``launches`` are phase 9 (a)'s.
+``launches`` are phase 9 (a)'s, and for its grouped form, whose
+``launches`` are phase 10 (b)'s.
 """
 
 from __future__ import annotations
@@ -162,33 +171,50 @@ PER_LANE_SHAPES = (
     (128, 200, 1280, "per-lane cell A"),
     (64, 504, 5504, "per-lane cell B"),
 )
+# Phase 10's: the grouped form (one A per instance group of L lanes) at
+# bench.py's layout, 10 groups x 128 lanes of the scp4x class, and ragged;
+# B is (G, L)
+GROUPED_SHAPES = (
+    ((10, 128), 200, 1280, "grouped bench"),
+    ((3, 5), 37, 301, "grouped ragged"),
+)
 
 
-def kernel_phase(torch, gram_mod, dev, card, shapes, per_lane: bool):
-    """Phase 2: the Gram kernel against its plain version and an f64 Gram,
-    with one A shared by the lanes or (``per_lane``) a distinct A per lane.
+def kernel_phase(torch, gram_mod, dev, card, shapes, form: str):
+    """Phase 2 (and 10 (a)): the Gram kernel against its plain version and an
+    f64 Gram, with one A shared by the lanes (``form`` "shared"), a distinct
+    A per lane ("per_lane"), or one A per instance group ("grouped", B =
+    (G, L)).
 
     Returns ({label: (kernel ms, plain ms, library ms)}, max abs error vs plain
     outside the full-range shapes, max per-entry relative error of kernel and
     plain).
     """
-    gen = torch.Generator(device=dev).manual_seed(1 if per_lane else 0)
+    gen = torch.Generator(device=dev).manual_seed({"shared": 0, "per_lane": 1, "grouped": 2}[form])
     kernel_err = entry_err = plain_entry_err = 0.0
     times = {}
     for B, m, n, label in shapes:
-        A32 = torch.randint(-1, 2, (B, m, n) if per_lane else (m, n), generator=gen, device=dev).float()
+        if form == "grouped":
+            a_shape, w_shape = (B[0], m, n), (*B, n)
+        else:
+            a_shape, w_shape = ((B, m, n) if form == "per_lane" else (m, n)), (B, n)
+        A32 = torch.randint(-1, 2, a_shape, generator=gen, device=dev).float()
         if "full range" in label:
             # w = sqrt(d2), d2 log-uniform over the IPM's clamp [1e-30, 1e30]
-            log_d2 = torch.rand((B, n), generator=gen, device=dev, dtype=torch.float64) * 60.0 - 30.0
+            log_d2 = torch.rand(w_shape, generator=gen, device=dev, dtype=torch.float64) * 60.0 - 30.0
             w = torch.sqrt(10.0**log_d2).float()
         else:
-            w = 10.0 ** (torch.rand((B, n), generator=gen, device=dev) * 9.0 - 6.0)
-        before = gram_mod.gram.launches_per_lane
+            w = 10.0 ** (torch.rand(w_shape, generator=gen, device=dev) * 9.0 - 6.0)
+        before = (gram_mod.gram.launches_per_lane, gram_mod.gram.launches_grouped)
         M = gram_mod.gram(A32, w)
-        check(gram_mod.gram.launches_per_lane - before == int(per_lane), f"per-lane count at {label}")
+        counted = (gram_mod.gram.launches_per_lane - before[0], gram_mod.gram.launches_grouped - before[1])
+        check(counted == (int(form == "per_lane"), int(form == "grouped")), f"per-form counts at {label}")
         plain = gram_mod.gram_reference(A32, w)
         torch.cuda.synchronize()
-        Aw = A32.double() * w.double()[:, None]
+        if form == "grouped":
+            Aw = A32.double()[:, None] * w.double()[..., None, :]
+        else:
+            Aw = A32.double() * w.double()[:, None]
         G64 = Aw @ Aw.mT
         bound = Aw.abs() @ Aw.abs().mT  # per entry: sum_k |Aw_ik| |Aw_jk|
         del Aw
@@ -449,14 +475,14 @@ BF16_FLOPS = 989e12
 HBM_BYTES = 3.35e12
 
 
-def gram_bound(B: int, m: int, n: int, per_lane: bool = False):
+def gram_bound(B: int, m: int, n: int, matrices: int = 1):
     """Least time of one Gram call on the card: the lower-triangle SYRK's
-    f32 FLOPs (2 B m(m+1)/2 n) over the f32 peak, against A (one [m, n], or
-    ``per_lane`` one per lane), w read once and M written once over HBM
-    bandwidth.  Returns (ms, bound_by, bf16x6 ms): the last is the kernel's
-    own work, six bf16 products, over the bf16 peak."""
+    f32 FLOPs (2 B m(m+1)/2 n) over the f32 peak, against A (``matrices``
+    of [m, n]: 1 shared, B per lane, G grouped), w read once and M written
+    once over HBM bandwidth.  Returns (ms, bound_by, bf16x6 ms): the last is
+    the kernel's own work, six bf16 products, over the bf16 peak."""
     flops = 2.0 * B * (m * (m + 1) / 2) * n
-    bytes_ = 4.0 * ((B if per_lane else 1) * m * n + B * n + B * m * m)
+    bytes_ = 4.0 * (matrices * m * n + B * n + B * m * m)
     ops_ms, bytes_ms = flops / F32_FLOPS * 1e3, bytes_ / HBM_BYTES * 1e3
     bound_by = "operations" if ops_ms >= bytes_ms else "bytes"
     return max(ops_ms, bytes_ms), bound_by, 6.0 * flops / BF16_FLOPS * 1e3
@@ -464,8 +490,11 @@ def gram_bound(B: int, m: int, n: int, per_lane: bool = False):
 
 def gram_library_call(torch, A32, w):
     """One PyTorch call computing the Gram function on the same inputs.  For
-    a per-lane A the einsum contracts left to right: the path opt_einsum
-    picks materialises [B, m, m, n] (83 GiB at (16, 504, 5504))."""
+    a per-lane or grouped A the einsum contracts left to right: the path
+    opt_einsum picks materialises [B, m, m, n] (83 GiB at (16, 504, 5504))."""
+    if w.ndim == 3:
+        with torch.backends.opt_einsum.flags(enabled=False):
+            return torch.einsum("gik,glk,glk,gjk->glij", A32, w, w, A32)
     if A32.ndim == 3:
         with torch.backends.opt_einsum.flags(enabled=False):
             return torch.einsum("bik,bk,bk,bjk->bij", A32, w, w, A32)
@@ -489,7 +518,8 @@ import atexit, importlib.machinery, importlib.util, os, sys
 
 def _report():
     gram = sys.modules.get("sypha_tpu_torch.ops.gram")
-    print(f"GRAM_LAUNCHES {gram.gram.launches if gram else 0}", file=sys.stderr)
+    counts = (gram.gram.launches, gram.gram.launches_grouped) if gram else (0, 0)
+    print("GRAM_LAUNCHES %d %d" % counts, file=sys.stderr)
 
 atexit.register(_report)
 _here = os.path.dirname(os.path.abspath(__file__))
@@ -1307,6 +1337,152 @@ def per_lane_phase(torch, st, gram_mod, spd, card, models_a, lp_a32):
     return launches_a, launches_b, launches_c, walls, iters
 
 
+def grouped_phase(torch, st, shared, gram_mod, dev, card):
+    """Phase 10: the grouped shared-matrix solve, bench.py's layout.
+
+    (a) K1's grouped form against its plain version at GROUPED_SHAPES; (b)
+    10 seeded scp4x-class instances x 128 lanes in one bucket through
+    stack_shared_batches and one mehrotra_solve_shared call (the grouped
+    K1's main path, its counts set to 0 just before), every lane against
+    HiGHS; (c) the same solve with the plain Gram, and each group alone on
+    the ungrouped engine in turn; (d) ``python3 -m sypha_tpu_torch.bench``
+    as users run it, its JSON line parsed.  Returns (grouped K1 launches of
+    (b), kernel times, max abs error, per-entry errors of kernel and plain,
+    {label: wall s})."""
+    import atexit
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    times, kernel_err, entry_err, plain_entry_err = kernel_phase(
+        torch, gram_mod, dev, card, GROUPED_SHAPES, form="grouped"
+    )
+
+    # (b) bench.py's layout: one bucket, 10 groups x 128 lanes
+    models = [st.parse_scp_text(synthetic_scp_text(seed), name=f"syn_scp4x_{seed}") for seed in range(10)]
+    mp = max(m.nrows for m in models)
+    np_ = max(m.nrows + m.ncols for m in models)
+    mp += (-mp) % 8
+    np_ += (-np_) % 128
+    lanes = 128
+    lps = [st.pad_lp(m, m_pad=mp, n_pad=np_, device=dev) for m in models]
+    batches = [st.make_shared_batch(lp, lanes) for lp in lps]
+    grouped = st.stack_shared_batches(batches)
+    real = torch.stack([torch.arange(np_, device=dev) < lp.n_real for lp in lps])[:, None, :]
+    opts = st.IpmOptions()
+    walls = {}
+
+    def objectives(c, x):
+        return torch.sum(torch.where(real, c * x, 0.0), dim=-1).cpu().numpy()
+
+    st.mehrotra_solve_shared(grouped, opts)  # warm-up at this shape
+    torch.cuda.synchronize()
+    gram_mod.gram.launches = 0
+    gram_mod.gram.launches_per_lane = 0
+    gram_mod.gram.launches_grouped = 0
+    t0 = time.perf_counter()
+    state = st.mehrotra_solve_shared(grouped, opts)
+    torch.cuda.synchronize()
+    walls["grouped"] = time.perf_counter() - t0
+    launches = gram_mod.gram.launches_grouped
+    check(gram_mod.gram.launches == launches, f"every K1 launch grouped: {gram_mod.gram.launches} vs {launches}")
+    status = state.status.cpu().numpy()
+    iters = state.iterations.cpu().numpy()
+    obj = objectives(grouped.c, state.x)
+    check(state.x.shape == (10, lanes, np_) and bool(torch.isfinite(state.x).all()), "grouped x shape, finite")
+    check(bool(np.all(status == st.IpmStatus.CONVERGED)), f"phase 10 (b) statuses {np.unique(status)}")
+    check(launches >= int(iters.max()) + 1, f"grouped K1 launches {launches} < iterations + 1")
+    highs = np.array([highs_objective(m) for m in models])
+    rel_h = np.abs(obj - highs[:, None]) / np.abs(highs[:, None])
+    check(rel_h.max() <= 1e-6, f"phase 10 (b) objectives vs HiGHS: max rel {rel_h.max()}")
+    print(
+        f"[grouped] (b) 10 groups x {lanes} lanes of scp4x-class LPs (padded {mp}x{np_}) in one "
+        f"grouped solve: all CONVERGED, every group vs HiGHS max rel {rel_h.max():.2e}; iterations "
+        f"per group {iters.max(axis=1).tolist()}; grouped K1 launches {launches} (of "
+        f"{gram_mod.gram.launches}); wall {walls['grouped']:.4f} s = "
+        f"{10 * lanes / walls['grouped']:.2f} solves/s on {card}"
+    )
+
+    # (c) the plain Gram; then each group alone on the ungrouped engine
+    shared.gram = gram_mod.gram_reference
+    try:
+        t0 = time.perf_counter()
+        plain = st.mehrotra_solve_shared(grouped, opts)
+        torch.cuda.synchronize()
+        walls["grouped plain Gram"] = time.perf_counter() - t0
+    finally:
+        shared.gram = gram_mod.gram
+    check(np.array_equal(plain.status.cpu().numpy(), status), "phase 10 (c) statuses, kernel vs plain Gram")
+    rel_p = np.max(np.abs(objectives(grouped.c, plain.x) - obj) / np.abs(obj))
+    check(rel_p <= 1e-8, f"phase 10 (c) objectives, kernel vs plain Gram: rel {rel_p}")
+    alone_walls, alone_iters, rel_alone = [], [], 0.0
+    for g, batch in enumerate(batches):
+        t0 = time.perf_counter()
+        one = st.mehrotra_solve_shared(batch, opts)
+        torch.cuda.synchronize()
+        alone_walls.append(time.perf_counter() - t0)
+        check(np.array_equal(one.status.cpu().numpy(), status[g]), f"phase 10 (c) group {g} statuses alone")
+        obj_g = objectives(batch.c[None], one.x[None])[0]
+        rel_alone = max(rel_alone, float(np.max(np.abs(obj_g - obj[g]) / np.abs(obj[g]))))
+        alone_iters.append(one.iterations.cpu().numpy())
+    check(rel_alone <= 1e-8, f"phase 10 (c) objectives, grouped vs groups alone: rel {rel_alone}")
+    d_iters = np.abs(np.stack(alone_iters) - iters)
+    check(d_iters.max() <= 1, f"phase 10 (c) iterations, grouped vs alone differ by {d_iters.max()}")
+    if d_iters.max() > 0:
+        lanes_off = [tuple(int(i) for i in ix) for ix in np.argwhere(d_iters > 0)]
+        print(f"[grouped] (c) iterations differ on lanes {lanes_off[:20]}: grouped "
+              f"{[int(iters[ix]) for ix in lanes_off[:20]]}, alone "
+              f"{[int(np.stack(alone_iters)[ix]) for ix in lanes_off[:20]]}")
+    walls["groups alone, sum"] = sum(alone_walls)
+    print(
+        f"[grouped] (c) plain Gram: statuses equal, objectives max rel {rel_p:.2e}, wall "
+        f"{walls['grouped plain Gram']:.4f} s; each group alone: statuses equal, objectives max rel "
+        f"{rel_alone:.2e}, iterations equal on {int((d_iters == 0).sum())} of {d_iters.size} lanes; "
+        f"grouped wall {walls['grouped']:.4f} s against the groups in turn {walls['groups alone, sum']:.4f} s "
+        f"({', '.join(f'{w:.4f}' for w in alone_walls)}) on {card}"
+    )
+
+    # (d) the bench as users run it, its K1 launches reported by the hook
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_bench_")
+    atexit.register(shutil.rmtree, tmp, ignore_errors=True)
+    with open(os.path.join(tmp, "sitecustomize.py"), "w") as f:
+        f.write(LAUNCH_HOOK)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(p for p in (tmp, env.get("PYTHONPATH")) if p)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "sypha_tpu_torch.bench"], capture_output=True, text=True, timeout=600,
+        env=env, cwd=os.path.dirname(os.path.abspath(__file__)),
+    )
+    walls["bench process"] = time.perf_counter() - t0
+    check(proc.returncode == 0, f"bench rc {proc.returncode}: {proc.stderr[-2000:]}")
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    hist = {int(k): v for k, v in res["iterations_histogram"].items()}
+    check(res["value"] > 0, f"bench value {res['value']}")
+    check(res["lanes"] == res["lanes_converged"] == 10 * lanes, f"bench lanes {res['lanes']}, converged {res['lanes_converged']}")
+    check(sum(hist.values()) == res["lanes"], "bench histogram covers every lane")
+    check(sum(k * v for k, v in hist.items()) == res["ipm_iters_total"], "bench ipm_iters_total = its lanes' iterations")
+    hook = [line for line in proc.stderr.splitlines() if line.startswith("GRAM_LAUNCHES ")]
+    check(len(hook) == 1, "bench subprocess reported its gram launches")
+    bench_launches = [int(v) for v in hook[0].split()[1:]]
+    # the grouped solves launch the grouped form, the single-LP ones the shared
+    check(0 < bench_launches[1] < bench_launches[0], f"bench subprocess gram launches {bench_launches}")
+    same = hist == {int(k): int(v) for k, v in zip(*np.unique(iters, return_counts=True))}
+    print(
+        f"[grouped] (d) python3 -m sypha_tpu_torch.bench: rc 0, value {res['value']} {res['unit']}, "
+        f"vs_baseline {res['vs_baseline']}, single-LP latency {res['single_lp_latency_s']} s (min "
+        f"{res['single_lp_latency_min_s']}), achieved {res['achieved_tflops']} TFLOP/s, "
+        f"ipm_iters_total {res['ipm_iters_total']}, {res['lanes_converged']}/{res['lanes']} converged, "
+        f"iterations histogram {res['iterations_histogram']} ({'equal to' if same else 'differs from'} (b)'s), "
+        f"gram launches {bench_launches[0]} ({bench_launches[1]} grouped), process wall "
+        f"{walls['bench process']:.3f} s, device {res['device']!r}"
+    )
+    print(f"[grouped] (d) bench line: {proc.stdout.strip().splitlines()[-1]}")
+    return launches, times, kernel_err, entry_err, plain_entry_err, walls
+
+
 def scpnre_text() -> str:
     from sypha_tpu_torch.testing import synthetic_scp
 
@@ -1373,10 +1549,10 @@ def main() -> int:
 
     # -- phase 2: the kernel against its plain version ---------------------
     times, kernel_err, entry_err, plain_entry_err = kernel_phase(
-        torch, gram_mod, dev, card, SHARED_SHAPES, per_lane=False
+        torch, gram_mod, dev, card, SHARED_SHAPES, form="shared"
     )
     times_pl, kernel_err_pl, entry_err_pl, plain_entry_err_pl = kernel_phase(
-        torch, gram_mod, dev, card, PER_LANE_SHAPES, per_lane=True
+        torch, gram_mod, dev, card, PER_LANE_SHAPES, form="per_lane"
     )
 
     # -- phase 3: slice A, batched LP relaxations --------------------------
@@ -1555,9 +1731,17 @@ def main() -> int:
         torch, st, gram_mod, spd, card, models_9, lp_9
     )
     timers.stop("per_lane")
+
+    # -- phase 10: the grouped solve, bench.py's layout ---------------------------
+    timers.start("grouped")
+    launches_10, times_g, kernel_err_g, entry_err_g, plain_entry_err_g, walls_10 = grouped_phase(
+        torch, st, shared, gram_mod, dev, card
+    )
+    timers.stop("grouped")
     print(timers.report())
     print(f"phase 8 walls (s): {json.dumps(walls)} on {card}")
     print(f"phase 9 walls (s): {json.dumps(walls_9)}; iterations {json.dumps(iters_9)} on {card}")
+    print(f"phase 10 walls (s): {json.dumps(walls_10)} on {card}")
     for label, (full_s, solve_s, k1, shared_s) in latency.items():
         print(
             f"single-LP latency, {label}: {full_s:.4f} s with pad_lp, {solve_s:.4f} s solve only, "
@@ -1566,8 +1750,9 @@ def main() -> int:
         )
 
     bound_a, bound_by, bf16_a = gram_bound(128, 200, 1280)
-    bound_pl_a, bound_by_pl_a, bf16_pl_a = gram_bound(128, 200, 1280, per_lane=True)
+    bound_pl_a, bound_by_pl_a, bf16_pl_a = gram_bound(128, 200, 1280, matrices=128)
     bound_b, _, bf16_b = gram_bound(64, 504, 5504)
+    bound_g, bound_by_g, bf16_g = gram_bound(1280, 200, 1280, matrices=10)
     slabs = {
         "slab_scpnre": ("slab scpnre", (2, 504, 2752)),
         "slab_scpnrg": ("slab scpnrg", (1, 1024, 5632)),
@@ -1635,11 +1820,32 @@ def main() -> int:
         "max_entry_rel_err": entry_err_pl,
         "plain_max_entry_rel_err": plain_entry_err_pl,
         **{
-            f"{key}_{name}": (times_pl[label] + gram_bound(*shape, per_lane=True)[:2])[i]
+            f"{key}_{name}": (times_pl[label] + gram_bound(*shape, matrices=shape[0])[:2])[i]
             for name, (label, shape) in {
                 "cell_b": ("per-lane cell B", (64, 504, 5504)),
                 "b16": ("per-lane full range", (16, 504, 5504)),
             }.items()
+            for i, key in enumerate(("ms", "plain_ms", "library_ms", "bound_ms", "bound_by"))
+        },
+    }, {
+        "name": "gram_grouped",
+        "route": "cuda",
+        "source": "sypha_tpu_torch/csrc/gram.cu",
+        "replaces": "sypha_tpu/ops/pallas_gram.py:40",
+        "launches": launches_10,
+        "max_abs_err": kernel_err_g,
+        "ms": times_g["grouped bench"][0],
+        "plain_ms": times_g["grouped bench"][1],
+        "bound_ms": bound_g,
+        "bound_by": bound_by_g,
+        "library_ms": times_g["grouped bench"][2],
+        "shape": [10, 128, 200, 1280],
+        "design": "bf16x6 mma.sync SYRK, one A per group of L lanes",
+        "bound_ms_bf16x6": bf16_g,
+        "max_entry_rel_err": entry_err_g,
+        "plain_max_entry_rel_err": plain_entry_err_g,
+        **{
+            f"{key}_ragged": (times_g["grouped ragged"] + gram_bound(15, 37, 301, matrices=3)[:2])[i]
             for i, key in enumerate(("ms", "plain_ms", "library_ms", "bound_ms", "bound_by"))
         },
     }]}))

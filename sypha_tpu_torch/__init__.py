@@ -3,7 +3,8 @@
 The LP and MILP paths of the JAX package (sypha_tpu), on PyTorch: read an
 SCP instance, pad its standard form (dense or padded ELL), solve stacked
 LPs with the per-lane Mehrotra IPM and many LP lanes that share one
-constraint matrix with the shared-matrix one, and run
+constraint matrix (or one per instance group, ``stack_shared_batches``) with
+the shared-matrix one, and run
 branch and bound with presolve, heuristics, cuts and the exact-cover
 closure over batched node windows.  The user entry points are those of the
 JAX package: ``solve_lp``/``solve_lp_batch``, the OR-Tools-style ``Solver``
@@ -36,6 +37,7 @@ from sypha_tpu_torch.ipm.shared import (
     make_shared_batch_auto,
     make_shared_batch_sparse,
     mehrotra_solve_shared,
+    stack_shared_batches,
 )
 from sypha_tpu_torch.milp import MilpResult, branch_and_bound
 from sypha_tpu_torch.ops.ell import EllMatrix
@@ -79,6 +81,7 @@ __all__ = [
     "make_shared_batch_auto",
     "make_shared_batch_sparse",
     "mehrotra_solve_shared",
+    "stack_shared_batches",
     "MilpResult",
     "branch_and_bound",
     "EllMatrix",

@@ -2,9 +2,10 @@
 //
 //     M[b, i, j] = sum_k (A_b[i, k] * w[b, k]) * (A_b[j, k] * w[b, k])
 //
-// A: [m, n] f32 shared by every lane (A_b = A, lane stride 0), or [B, m, n]
-// f32 with a matrix per lane (A_b = A + b m n, lane stride m n); w: [B, n]
-// f32; M: [B, m, m] f32.
+// A: [m, n] f32 shared by every lane (A_b = A, lane stride 0), [B, m, n]
+// f32 with a matrix per lane (A_b = A + b m n, lane stride m n), or [G, m, n]
+// f32 with one matrix per group of L consecutive lanes (A_b = A + (b / L) m n,
+// the grouped shared-matrix batch); w: [B, n] f32 (B = G L); M: [B, m, m] f32.
 //
 // Replaces the Pallas TPU kernel sypha_tpu/ops/pallas_gram.py:pallas_gram,
 // which formed the same matrices from a materialised [B, m, n] Aw = A * w
@@ -16,7 +17,9 @@
 // and stays in the 50 MB L2, so only one copy crosses HBM.  A per-lane A
 // crosses HBM once per lane, 4 B m n bytes in all (about 710 MB at 64 lanes
 // of 504 x 5504); the lane's tiles are neighbours on grid.x, so they run
-// together and share each row block through L2.  At the main path's shapes
+// together and share each row block through L2.  A grouped A crosses HBM
+// once per group: a group's lanes are consecutive on grid.y, so they run
+// close together and read their matrix from L2.  At the main path's shapes
 // (m = 200, n = 1280 and m = 504, n = 5504) that is still 50-125 FLOPs per
 // byte for a per-lane A and hundreds for a shared one, so it is bound by
 // arithmetic.  fp32 FMAs on the CUDA cores give about 67 TFLOP/s; the bf16
@@ -252,7 +255,8 @@ __device__ __forceinline__ void mma_chunk(float (&acc)[2][4][4], const Split& s,
 template <int kVec>
 __global__ void __launch_bounds__(kThreads)
     gram_kernel(const float* __restrict__ A, const float* __restrict__ w,
-                float* __restrict__ M, int m, int n, long long a_stride) {
+                float* __restrict__ M, int m, int n, long long a_stride,
+                int lanes_per_matrix) {
   extern __shared__ __align__(16) unsigned char smem_bytes[];
   Smem& smem = *reinterpret_cast<Smem*>(smem_bytes);
 
@@ -266,7 +270,7 @@ __global__ void __launch_bounds__(kThreads)
   const int i0 = ti * kTile;
   const int j0 = tj * kTile;
   const int b = blockIdx.y;
-  const float* Ab = A + static_cast<size_t>(b) * a_stride;
+  const float* Ab = A + static_cast<size_t>(b / lanes_per_matrix) * a_stride;
   const float* wb = w + static_cast<size_t>(b) * n;
 
   const int warp = threadIdx.x / 32;
@@ -342,25 +346,31 @@ __global__ void __launch_bounds__(kThreads)
 
 template <int kVec>
 cudaError_t launch(const float* A, const float* w, float* M, int B, int m, int n,
-                   long long a_stride, cudaStream_t stream) {
+                   long long a_stride, int lanes_per_matrix, cudaStream_t stream) {
   constexpr int kBytes = sizeof(Smem);  // above the 48 KB static limit
   cudaError_t err = cudaFuncSetAttribute(gram_kernel<kVec>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
   if (err != cudaSuccess) return err;
   const int tiles = (m + kTile - 1) / kTile;
   const dim3 grid(tiles * (tiles + 1) / 2, B);
-  gram_kernel<kVec><<<grid, kThreads, kBytes, stream>>>(A, w, M, m, n, a_stride);
+  gram_kernel<kVec><<<grid, kThreads, kBytes, stream>>>(A, w, M, m, n, a_stride,
+                                                         lanes_per_matrix);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// Launches the kernel on `stream` of `device`.  `a_stride` is the distance
-// in floats between the A of lane b and of lane b + 1: 0 for a shared A,
-// m n for one A per lane.  Returns cudaGetLastError() after the launch (0 on
-// success); the caller owns every buffer.
+// Launches the kernel on `stream` of `device`.  Lane b reads the matrix at
+// A + (b / lanes_per_matrix) a_stride: `a_stride` is the distance in floats
+// between two consecutive matrices (0 for one A shared by every lane, m n
+// otherwise) and `lanes_per_matrix` the number of consecutive lanes that
+// share one (1 for one A per lane, L for groups of L lanes).  Returns
+// cudaGetLastError() after the launch (0 on success), cudaErrorInvalidValue
+// for lanes_per_matrix < 1; the caller owns every buffer.
 extern "C" int sypha_gram_f32(const float* A, const float* w, float* M, int B, int m, int n,
-                              long long a_stride, int device, cudaStream_t stream) {
+                              long long a_stride, int lanes_per_matrix, int device,
+                              cudaStream_t stream) {
+  if (lanes_per_matrix < 1) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   // 16-byte copies need every row of every lane's A and of w on a 16-byte
@@ -368,7 +378,7 @@ extern "C" int sypha_gram_f32(const float* A, const float* w, float* M, int B, i
   const bool aligned = n % 4 == 0 && a_stride % 4 == 0 &&
                        reinterpret_cast<uintptr_t>(A) % 16 == 0 &&
                        reinterpret_cast<uintptr_t>(w) % 16 == 0;
-  err = aligned ? launch<4>(A, w, M, B, m, n, a_stride, stream)
-                : launch<1>(A, w, M, B, m, n, a_stride, stream);
+  err = aligned ? launch<4>(A, w, M, B, m, n, a_stride, lanes_per_matrix, stream)
+                : launch<1>(A, w, M, B, m, n, a_stride, lanes_per_matrix, stream);
   return static_cast<int>(err);
 }

@@ -30,6 +30,16 @@ The iterate (``IpmState``, from sypha_tpu/ipm/dense.py) and every f64
 quantity stay float64; only the Gram matrix, its factor and the
 preconditioner apply are float32.
 
+Instance groups: ``stack_shared_batches`` stacks G dense batches of one
+bucket, each with its own A and L lanes, into one grouped batch (A
+[G, m, n], lane fields [G, L, ...]), the layout that the JAX package's
+bench.py solves as ``jax.vmap`` over groups of one ``mehrotra_solve_shared``.
+One IPM loop runs every group: A-products are matmuls broadcast over the
+group axis, the Gram kernel forms all G L normal matrices in one launch, and
+the IPM loop's test and the PCG's are taken per group, so a group stops
+where it would stop alone and then keeps its whole state, its stall
+monitor included, while the others step.
+
 Tensor parallelism: with ``group`` (a ``torch.distributed`` process group,
 the counterpart of the JAX package's ``axis_name``) each rank holds a column
 slab of A and the matching slices of c, col_mask, x and s, while b, y and
@@ -64,7 +74,8 @@ from sypha_tpu_torch.ops.spd import NormalEqFactor, _apply_normal_precond, facto
 
 @dataclass(frozen=True)
 class IpmState:
-    """Iterate of the batched IPM; every field has a leading lane axis [B]."""
+    """Iterate of the batched IPM; every field has a leading lane axis [B]
+    ([G, L] for a grouped batch)."""
 
     x: torch.Tensor  # [B, n_pad] f64 primal
     y: torch.Tensor  # [B, m_pad] f64 dual
@@ -94,6 +105,10 @@ class SharedLpBatch:
     A: [m, n] f64 (shared), a dense tensor or an ops.ell.EllMatrix;
     b: [B, m]; c: [B, n]; col_mask: [B, n] in {0,1}; row_pad: [m] (1 on pad
     rows); obj_offset: [B].  All f64, one device.
+
+    Grouped (``stack_shared_batches``): G instance groups of L lanes, each
+    group sharing its own dense A: A [G, m, n], b [G, L, m], c and col_mask
+    [G, L, n], row_pad [G, m], obj_offset [G, L]; ``n_lanes`` is L.
     """
 
     A: torch.Tensor
@@ -119,18 +134,24 @@ class SharedLpBatch:
     def is_sparse(self) -> bool:
         return isinstance(self.A, EllMatrix)
 
+    @property
+    def is_grouped(self) -> bool:
+        return not self.is_sparse and self.A.ndim == 3
+
 
 def _A_products(A):
     """(Av, ATu, sqAv) for a dense [m, n] A or an EllMatrix:
     Av: [..., n] -> [..., m] = A @ v;  ATu: [..., m] -> [..., n] = A^T @ u;
-    sqAv: [..., n] -> [..., m] = (A∘A) @ d (the Jacobi-diagonal product)."""
+    sqAv: [..., n] -> [..., m] = (A∘A) @ d (the Jacobi-diagonal product).
+    A dense [G, m, n] A (a grouped batch) takes [G, L, ...] vectors, and the
+    products broadcast over the group axis."""
     if isinstance(A, EllMatrix):
         return A.Av, A.ATu, A.sqAv
     A2 = A * A
     return (
-        lambda v: v @ A.T,
+        lambda v: v @ A.mT,
         lambda u: u @ A,
-        lambda d: d @ A2.T,
+        lambda d: d @ A2.mT,
     )
 
 
@@ -203,12 +224,38 @@ def make_shared_batch_auto(
     return make_shared_batch(pad_lp(model, m_pad=m_pad, n_pad=n_pad, device=device), n_lanes)
 
 
+def stack_shared_batches(batches) -> SharedLpBatch:
+    """Stack G dense batches of one bucket into one grouped batch.
+
+    The counterpart of ``jax.tree.map(jnp.stack, *batches)`` in the JAX
+    package's bench.py: every batch holds its own A [m, n] and L lanes, with
+    the same m_pad, n_pad and L.  The result has A [G, m, n], b [G, L, m], c
+    and col_mask [G, L, n], row_pad [G, m] and obj_offset [G, L], which
+    ``mehrotra_solve_shared`` solves as one batch of G instance groups.
+    Raises ValueError on an ELL operator, a batch that is already grouped,
+    or batches of different shapes.
+    """
+    batches = list(batches)
+    if not batches:
+        raise ValueError("stack_shared_batches takes at least one batch")
+    if any(bt.is_sparse or bt.A.ndim != 2 for bt in batches):
+        raise ValueError("stack_shared_batches takes dense batches with one A [m, n] each")
+    fields = [f.name for f in dataclasses.fields(SharedLpBatch)]
+    shapes = {tuple(tuple(getattr(bt, f).shape) for f in fields) for bt in batches}
+    if len(shapes) != 1:
+        raise ValueError(
+            "stack_shared_batches takes batches of one bucket and lane count, got "
+            f"{sorted((bt.m_pad, bt.n_pad, bt.n_lanes) for bt in batches)}"
+        )
+    return SharedLpBatch(**{f: torch.stack([getattr(bt, f) for bt in batches]) for f in fields})
+
+
 def fix_columns(batch: SharedLpBatch, fix0, fix1) -> SharedLpBatch:
     """Apply per-lane branch fixings.
 
-    fix0/fix1: [B, n] {0,1} float masks (tensors or numpy) of variables fixed
-    to 0 / 1.  Fixing to 1 substitutes the column out: b -= A_j,
-    offset += c_j.
+    fix0/fix1: [B, n] ([G, L, n] for a grouped batch) {0,1} float masks
+    (tensors or numpy) of variables fixed to 0 / 1.  Fixing to 1 substitutes
+    the column out: b -= A_j, offset += c_j.
     """
     Av, _, _ = _A_products(batch.A)
     c0 = batch.c
@@ -267,17 +314,19 @@ def _shared_factor(A32, d2_eff, row_reg, ft, ridge: float, leaf_size: int, group
     Returns (Linv, dinv): the inverse Cholesky factor of the Jacobi-
     equilibrated M (plus ridge) and the equilibration scales, both in ``ft``.
     In f32 the Gram matrix comes from the Gram kernel (``gram``), which
-    applies w = sqrt(d2_eff) to A while loading it.  Under tensor
-    parallelism (``group``) A32 and d2_eff are the rank's column slab, and
-    the partial Grams sum over the ranks before the ridge and the scaling.
+    applies w = sqrt(d2_eff) to A while loading it; a grouped A32 [G, m, n]
+    with d2_eff [G, L, n] forms all G L matrices in one launch.  Under
+    tensor parallelism (``group``) A32 and d2_eff are the rank's column
+    slab, and the partial Grams sum over the ranks before the ridge and the
+    scaling.
     """
     psum = _reducers(group)[0]
     w = torch.sqrt(d2_eff).to(ft)
     if ft == torch.float32:
         M = gram(A32, w.contiguous())
     else:
-        Aw = A32[None, :, :] * w[:, None, :]
-        M = torch.einsum("bik,bjk->bij", Aw, Aw)
+        Aw = (A32[:, None] if A32.ndim == 3 else A32[None]) * w[..., None, :]
+        M = torch.einsum("...ik,...jk->...ij", Aw, Aw)
     return factor_gram(psum(M), row_reg, ridge, leaf_size)
 
 
@@ -286,9 +335,30 @@ def _precond(Linv, dinv, r):
     return _apply_normal_precond(NormalEqFactor(Linv=Linv, dinv=dinv), r)
 
 
-def _pcg(Linv, dinv, matvec, f, tol, max_steps: int, agree=bool):
+def _pcg(Linv, dinv, matvec, f, tol, max_steps: int, agree=bool, per_group=False):
     """Flexible PCG preconditioned by the f32 Cholesky factor (ops.spd)."""
-    return pcg_solve(lambda r: _precond(Linv, dinv, r), matvec, f, tol, max_steps, agree)
+    return pcg_solve(
+        lambda r: _precond(Linv, dinv, r), matvec, f, tol, max_steps, agree, per_group=per_group
+    )
+
+
+def _check_group(batch: SharedLpBatch, group):
+    if batch.is_grouped and group is not None:
+        raise ValueError(
+            "a grouped batch (instance groups) does not run tensor-parallel over a process group"
+        )
+
+
+def _keep_frozen_groups(stepping, new: IpmState, old: IpmState) -> IpmState:
+    """Per instance group, the new state where the group was stepping
+    (``stepping`` [G]), else its whole old state: ``jax.vmap`` of the while
+    loop's select."""
+    def pick(a, b):
+        return torch.where(stepping.view((-1,) + (1,) * (a.ndim - 1)), a, b)
+
+    return IpmState(**{
+        f.name: pick(getattr(new, f.name), getattr(old, f.name)) for f in dataclasses.fields(IpmState)
+    })
 
 
 def use_cg_strategy(opts: IpmOptions, m_pad: int) -> bool:
@@ -305,15 +375,19 @@ def shared_initial_point(
     batch: SharedLpBatch, opts: IpmOptions, A32, use_cg: bool, group=None
 ):
     """Mehrotra initial point, batched over lanes of the shared matrix
-    (``group``: tensor parallelism, as in ``mehrotra_solve_shared``)."""
+    (``group``: tensor parallelism, as in ``mehrotra_solve_shared``; a
+    grouped batch's solves run per instance group)."""
+    _check_group(batch, group)
     A, b, c, mask = batch.A, batch.b, batch.c, batch.col_mask
     Av, ATu, sqAv = _A_products(A)
     ft, ridge = _factor_params(opts)
-    row_reg = batch.row_pad.expand(b.shape)
+    row_pad = batch.row_pad.unsqueeze(-2)  # [1, m], grouped [G, 1, m]
+    row_reg = row_pad.expand(b.shape)
     psum, pmin, _, agree = _reducers(group)
+    grouped = batch.is_grouped
 
     def matvec(v):
-        return psum(Av(mask * ATu(v))) + batch.row_pad * v
+        return psum(Av(mask * ATu(v))) + row_pad * v
 
     if use_cg:
         diag = psum(sqAv(mask)) + row_reg
@@ -321,7 +395,7 @@ def shared_initial_point(
         def solve(f):
             return pcg_solve(
                 lambda r: r / torch.clamp(diag, min=1e-300),
-                matvec, f, 1e-12, opts.cg_max_iter, agree,
+                matvec, f, 1e-12, opts.cg_max_iter, agree, per_group=grouped,
             )[0]
     else:
         Linv, dinv = _shared_factor(
@@ -329,7 +403,9 @@ def shared_initial_point(
         )
 
         def solve(f):
-            return _pcg(Linv, dinv, matvec, f, 1e-12, opts.newton_max_steps, agree)[0]
+            return _pcg(
+                Linv, dinv, matvec, f, 1e-12, opts.newton_max_steps, agree, per_group=grouped
+            )[0]
 
     vy = solve(b)
     x = mask * ATu(vy)
@@ -371,6 +447,13 @@ def mehrotra_solve_shared(
     iteration steps every lane and keeps the old iterate where a lane is no
     longer RUNNING, exactly as the JAX ``lax.while_loop`` does.
 
+    A grouped batch (``stack_shared_batches``) runs as ``jax.vmap`` over its
+    instance groups of that loop: the fields are [G, L, ...], the loop's
+    test and the PCG's are taken per group, and a group with no lane
+    RUNNING at the top of a step (of a factor refresh's steps) keeps its
+    whole state, ``best_gap`` and ``stall_count`` included, while the other
+    groups step.  ``state0``/``iter_limit`` resume it the same way.
+
     ``iter_limit`` caps the per-lane iteration count (default
     ``opts.max_iter``).  A caller can run a solve in chunks: solve with a
     small limit, check the wall clock, then resume by passing the returned
@@ -381,11 +464,14 @@ def mehrotra_solve_shared(
     ``group`` runs the solve tensor-parallel over a ``torch.distributed``
     process group: ``batch`` holds this rank's column slab (A, c, col_mask,
     and x0/s0 when given) with b, row_pad and obj_offset whole, and the
-    returned x and s are this rank's slabs (see the module docstring).
+    returned x and s are this rank's slabs (see the module docstring).  A
+    grouped batch with a ``group`` raises ValueError.
     """
+    _check_group(batch, group)
     A, b, c, mask = batch.A, batch.b, batch.c, batch.col_mask
     Av, ATu, sqAv = _A_products(A)
-    B, n_pad = c.shape[-2], c.shape[-1]
+    lanes, n_pad = c.shape[:-1], c.shape[-1]
+    grouped = batch.is_grouped
     dev = c.device
     ft, ridge = _factor_params(opts)
     use_cg = use_cg_strategy(opts, batch.m_pad)
@@ -393,7 +479,8 @@ def mehrotra_solve_shared(
         A32 = None
     else:
         A32 = A.todense(ft) if batch.is_sparse else A.to(ft).contiguous()
-    row_reg = batch.row_pad.expand(b.shape)
+    row_pad = batch.row_pad.unsqueeze(-2)  # [1, m], grouped [G, 1, m]
+    row_reg = row_pad.expand(b.shape)
     RUNNING = int(IpmStatus.RUNNING)
     # tensor parallelism: every sum/min over n and every A-product onto the
     # row space reduces across the ranks; identity reducers without a group
@@ -419,7 +506,7 @@ def mehrotra_solve_shared(
         else:
             x, y, s = x0, y0, s0
 
-        one = torch.ones((B,), dtype=c.dtype, device=dev)
+        one = torch.ones(lanes, dtype=c.dtype, device=dev)
         state0 = IpmState(
             x=x,
             y=y,
@@ -428,10 +515,10 @@ def mehrotra_solve_shared(
             gap=one,
             res_p=one,
             res_d=one,
-            iterations=torch.zeros((B,), dtype=torch.int32, device=dev),
-            status=torch.full((B,), RUNNING, dtype=torch.int32, device=dev),
-            best_gap=torch.full((B,), float("inf"), dtype=c.dtype, device=dev),
-            stall_count=torch.zeros((B,), dtype=torch.int32, device=dev),
+            iterations=torch.zeros(lanes, dtype=torch.int32, device=dev),
+            status=torch.full(lanes, RUNNING, dtype=torch.int32, device=dev),
+            best_gap=torch.full(lanes, float("inf"), dtype=c.dtype, device=dev),
+            stall_count=torch.zeros(lanes, dtype=torch.int32, device=dev),
         )
 
     def one_step(st: IpmState, Linv_c, dinv_c) -> IpmState:
@@ -466,13 +553,13 @@ def mehrotra_solve_shared(
         if opts.gap_stall_window > 0:
             stalled = stall_count >= opts.gap_stall_window
         else:
-            stalled = torch.zeros((B,), dtype=torch.bool, device=dev)
+            stalled = torch.zeros(lanes, dtype=torch.bool, device=dev)
 
         d2 = torch.clamp(x / s, opts.d2_min, opts.d2_max)
         d2_eff = d2 * mask
 
         def matvec(v):
-            return psum(Av(d2_eff * ATu(v))) + batch.row_pad * v
+            return psum(Av(d2_eff * ATu(v))) + row_pad * v
 
         if use_cg:
             # Jacobi-CG with the adaptive tolerance schedule per IPM iteration
@@ -481,15 +568,15 @@ def mehrotra_solve_shared(
                 opts.cg_tol_initial
                 * opts.cg_tol_decay ** st.iterations.to(c.dtype),
                 min=opts.cg_tol_final,
-            )[:, None]
+            )[..., None]
 
             def solve(f):
                 return pcg_solve(
                     lambda r: r / torch.clamp(diag, min=1e-300),
-                    matvec, f, cg_tol, opts.cg_max_iter, agree,
+                    matvec, f, cg_tol, opts.cg_max_iter, agree, per_group=grouped,
                 )
 
-            solve_gate = torch.clamp(100.0 * cg_tol[:, 0], min=1e-3)
+            solve_gate = torch.clamp(100.0 * cg_tol[..., 0], min=1e-3)
         else:
             if Linv_c is None:
                 Linv_c, dinv_c = _shared_factor(
@@ -499,7 +586,7 @@ def mehrotra_solve_shared(
             def solve(f):
                 return _pcg(
                     Linv_c, dinv_c, matvec, f, opts.newton_tol, opts.newton_max_steps,
-                    agree,
+                    agree, per_group=grouped,
                 )
 
             solve_gate = 1e-3
@@ -518,23 +605,23 @@ def mehrotra_solve_shared(
 
         r_xs = x * s
         dxa, dya, dsa, rel_a = newton(r_xs)
-        a_p = pmin(_alpha_max_batch(x, dxa))[:, None]
-        a_d = pmin(_alpha_max_batch(s, dsa))[:, None]
+        a_p = pmin(_alpha_max_batch(x, dxa))[..., None]
+        a_d = pmin(_alpha_max_batch(s, dsa))[..., None]
         mu_aff = psum(torch.sum((x + a_p * dxa) * (s + a_d * dsa), dim=-1)) / n_total
         sigma = (mu_aff / mu) ** opts.sigma_pow
 
-        dx, dy, ds, rel_c = newton(r_xs + dxa * dsa - (sigma * mu)[:, None])
+        dx, dy, ds, rel_c = newton(r_xs + dxa * dsa - (sigma * mu)[..., None])
 
         # Gondzio multiple centrality correctors: push complementarity
         # products toward [beta_min, beta_max] * sigma*mu with extra solves
         # on the same factor; accept a correction only if it lengthens the
         # step.  The corrector's alphas stay rank-local, as in the JAX package.
-        mu_t = (sigma * mu)[:, None]
+        mu_t = (sigma * mu)[..., None]
         for _ in range(opts.max_correctors):
             ap = _alpha_max_batch(x, dx)
             ad = _alpha_max_batch(s, ds)
-            ap_t = torch.clamp(ap * 1.08 + 0.08, max=1.0)[:, None]
-            ad_t = torch.clamp(ad * 1.08 + 0.08, max=1.0)[:, None]
+            ap_t = torch.clamp(ap * 1.08 + 0.08, max=1.0)[..., None]
+            ad_t = torch.clamp(ad * 1.08 + 0.08, max=1.0)[..., None]
             v = (x + ap_t * dx) * (s + ad_t * ds)
             target = torch.clamp(
                 v, opts.corrector_beta_min * mu_t, opts.corrector_beta_max * mu_t
@@ -550,7 +637,7 @@ def mehrotra_solve_shared(
             better = ((ap2 >= ap + 0.01) & (ad2 >= ad)) | (
                 (ad2 >= ad + 0.01) & (ap2 >= ap)
             )
-            sel_c = better[:, None]
+            sel_c = better[..., None]
             dx = torch.where(sel_c, dx + dxc, dx)
             dy = torch.where(sel_c, dy + dyc, dy)
             ds = torch.where(sel_c, ds + dsc, ds)
@@ -559,8 +646,8 @@ def mehrotra_solve_shared(
             eta = torch.clamp(1.0 - mu, min=opts.eta)
         else:
             eta = torch.full_like(mu, opts.eta)
-        alpha_p = torch.clamp(eta * pmin(_alpha_max_batch(x, dx)), max=1.0)[:, None]
-        alpha_d = torch.clamp(eta * pmin(_alpha_max_batch(s, ds)), max=1.0)[:, None]
+        alpha_p = torch.clamp(eta * pmin(_alpha_max_batch(x, dx)), max=1.0)[..., None]
+        alpha_d = torch.clamp(eta * pmin(_alpha_max_batch(s, ds)), max=1.0)[..., None]
 
         x_new = x + alpha_p * dx
         y_new = y + alpha_d * dy
@@ -603,7 +690,7 @@ def mehrotra_solve_shared(
         final = st.status != RUNNING
         new_status = torch.where(final, st.status, new_status)
         stepped = new_status == RUNNING
-        sel = stepped[:, None]
+        sel = stepped[..., None]
 
         return IpmState(
             x=torch.where(sel, x_new, x),
@@ -621,6 +708,7 @@ def mehrotra_solve_shared(
 
     st = state0
     while agree((st.status == RUNNING).any()):
+        top = st
         if use_cg or opts.factor_refresh_every <= 1:
             Linv = dinv = None  # one_step factors inline (or needs none)
         else:
@@ -630,5 +718,7 @@ def mehrotra_solve_shared(
             )
         for _ in range(max(1, opts.factor_refresh_every)):
             st = one_step(st, Linv, dinv)
+        if grouped:
+            st = _keep_frozen_groups((top.status == RUNNING).any(dim=-1), st, top)
     return st
 

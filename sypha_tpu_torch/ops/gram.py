@@ -8,9 +8,11 @@ note there): a SYRK on the bf16 tensor cores that splits each f32 operand
 into three bf16 pieces and keeps the six products that carry f32 precision.
 It applies the column scale while staging tiles of A, so the [B, m, n]
 ``Aw`` temporary that the JAX path built never exists.  ``A`` is one matrix
-shared by every lane ([m, n], the shared-matrix IPM) or one per lane
-([B, m, n], the per-lane IPM, the Pallas kernel's own contract).  On a CPU
-tensor it computes the same product with ``gram_reference``, the plain
+shared by every lane ([m, n], the shared-matrix IPM), one per lane
+([B, m, n], the per-lane IPM, the Pallas kernel's own contract), or one per
+instance group of L lanes (A [G, m, n] with w [G, L, n], the grouped
+shared-matrix IPM: the Pallas kernel under ``jax.vmap`` over groups).  On a
+CPU tensor it computes the same product with ``gram_reference``, the plain
 PyTorch version.  There is no fallback from the kernel to the plain version
 on the card.
 """
@@ -25,13 +27,16 @@ import torch
 
 from sypha_tpu_torch.ops._build import load_library
 
-# the kernel's lane axis is gridDim.y
+# the kernel's lane axis is gridDim.y (G L lanes in the grouped form)
 _MAX_LANES = 65535
 
 
 def gram_reference(A32: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Plain version: [m, n] or [B, m, n] f32, [B, n] f32 -> [B, m, m] f32
-    (f32 sums)."""
+    """Plain version: [m, n] or [B, m, n] f32, [B, n] f32 -> [B, m, m] f32;
+    grouped, [G, m, n] and [G, L, n] -> [G, L, m, m] (f32 sums)."""
+    if w.ndim == 3:
+        Aw = A32[:, None] * w[..., None, :]
+        return torch.einsum("glik,gljk->glij", Aw, Aw)
     Aw = A32 * w[:, None, :]
     return torch.einsum("bik,bjk->bij", Aw, Aw)
 
@@ -43,9 +48,12 @@ _count_lock = threading.Lock()
 @functools.cache
 def _bind():
     fn = load_library("gram").sypha_gram_f32
-    # A, w, M; B, m, n; A's lane stride in floats; device; stream
+    # A, w, M; B, m, n; A's matrix stride in floats; lanes per matrix;
+    # device; stream
     fn.argtypes = (
-        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+        [ctypes.c_void_p] * 3
+        + [ctypes.c_int] * 3
+        + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
     return fn
@@ -65,10 +73,11 @@ def _check(A32: torch.Tensor, w: torch.Tensor):
         raise TypeError(f"gram takes float32 tensors, got {A32.dtype} and {w.dtype}")
     shared = A32.ndim == 2 and w.ndim == 2 and A32.shape[1] == w.shape[1]
     per_lane = A32.ndim == 3 and w.ndim == 2 and A32.shape[::2] == w.shape
-    if not (shared or per_lane):
+    grouped = A32.ndim == 3 and w.ndim == 3 and A32.shape[::2] == w.shape[::2]
+    if not (shared or per_lane or grouped):
         raise ValueError(
-            f"gram takes A32 [m, n] or [B, m, n] and w [B, n], got {tuple(A32.shape)} and "
-            f"{tuple(w.shape)}"
+            f"gram takes A32 [m, n] or [B, m, n] with w [B, n], or A32 [G, m, n] with w "
+            f"[G, L, n], got {tuple(A32.shape)} and {tuple(w.shape)}"
         )
     if A32.device != w.device:
         raise ValueError(f"gram operands on different devices: {A32.device}, {w.device}")
@@ -78,39 +87,47 @@ def _check(A32: torch.Tensor, w: torch.Tensor):
 
 def gram(A32: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """M[b, i, j] = sum_k (A[i, k] w[b, k]) (A[j, k] w[b, k]), f32, where A
-    is A32 (shared) or A32[b] (per lane).
+    is A32 (shared) or A32[b] (per lane); grouped, M[g, l] is the shared
+    form of A32[g] with w[g, l].
 
-    A32: [m, n] or [B, m, n] f32 contiguous; w: [B, n] f32 contiguous, same
-    device.  CUDA tensors go through the hand-written kernel:
-    ``gram.launches`` counts its launches and ``gram.launches_per_lane``
-    those of them in the per-lane form, exactly under host threads.  CPU
-    tensors go through ``gram_reference``.
+    A32: [m, n] or [B, m, n] f32 contiguous with w: [B, n] f32 contiguous,
+    or A32 [G, m, n] with w [G, L, n] (M [G, L, m, m]); same device.  CUDA
+    tensors go through the hand-written kernel in one launch over every
+    lane: ``gram.launches`` counts its launches, ``gram.launches_per_lane``
+    and ``gram.launches_grouped`` those of them in the per-lane and grouped
+    forms, exactly under host threads.  CPU tensors go through
+    ``gram_reference``.
     """
     _check(A32, w)
     if A32.device.type == "cpu":
         return gram_reference(A32, w)
     if A32.device.type != "cuda":
         raise ValueError(f"gram runs on cuda or cpu tensors, not {A32.device}")
-    B, n = w.shape
-    m = A32.shape[-2]
+    m, n = A32.shape[-2:]
+    lanes = w.shape[:-1]  # (B,) or (G, L)
+    B = lanes.numel()
     a_stride = m * n if A32.ndim == 3 else 0
+    lanes_per_matrix = lanes[-1] if w.ndim == 3 else 1
     if B > _MAX_LANES:
         raise ValueError(f"gram takes at most {_MAX_LANES} lanes, got {B}")
-    M = torch.empty((B, m, m), dtype=torch.float32, device=A32.device)
+    M = torch.empty(lanes + (m, m), dtype=torch.float32, device=A32.device)
     if B == 0 or m == 0:
         return M
     device = A32.device.index if A32.device.index is not None else torch.cuda.current_device()
     stream = torch.cuda.current_stream(device).cuda_stream
     err = load_kernel()(
-        A32.data_ptr(), w.data_ptr(), M.data_ptr(), B, m, n, a_stride, device, stream
+        A32.data_ptr(), w.data_ptr(), M.data_ptr(), B, m, n, a_stride, lanes_per_matrix,
+        device, stream,
     )
     if err != 0:
         raise RuntimeError(f"gram kernel launch failed with CUDA error {err}")
     with _count_lock:
         gram.launches += 1
-        gram.launches_per_lane += int(a_stride > 0)
+        gram.launches_per_lane += int(A32.ndim == 3 and w.ndim == 2)
+        gram.launches_grouped += int(w.ndim == 3)
     return M
 
 
 gram.launches = 0
 gram.launches_per_lane = 0
+gram.launches_grouped = 0

@@ -7,10 +7,11 @@ recovers f64 accuracy.  With a Jacobi diagonal instead of the factor the
 same loop is the matrix-free CG strategy.
 
 Everything is batch-first ([..., m, m] / [..., m]).  ``pcg_solve`` (and
-``spd_solve``, ``normal_eq_solve`` on top of it) has two loop semantics:
+``spd_solve``, ``normal_eq_solve`` on top of it) has three loop semantics:
 batch-wide, as the JAX package's loop runs on a batched call (the
-shared-matrix IPM), and per lane, as ``jax.vmap`` of that loop runs (the
-per-lane IPM of ipm.dense).
+shared-matrix IPM), per lane, as ``jax.vmap`` of that loop runs (the
+per-lane IPM of ipm.dense), and per instance group, as ``jax.vmap`` over
+groups of a batch-wide loop runs (the grouped shared-matrix IPM).
 
 ``normal_eq_factor`` in f32 forms its Gram matrix with the Gram kernel
 (ops.gram), one matrix per lane or one shared by every lane.
@@ -136,6 +137,7 @@ def pcg_solve(
     max_steps: int = 40,
     agree: Callable[[torch.Tensor], bool] = bool,
     per_lane: bool | torch.Tensor = False,
+    per_group: bool = False,
 ):
     """Flexible (Polak-Ribiere) PCG in f.dtype, matrix-free and batch-first.
 
@@ -143,7 +145,7 @@ def pcg_solve(
     reached, which the IPM's step-quality gates read.  ``tol`` is a float or
     a per-lane [..., 1] tensor.
 
-    Loop semantics, both those of the JAX ``lax.while_loop``:
+    Loop semantics, all those of the JAX ``lax.while_loop``:
 
     * ``per_lane=False`` (batch-wide, the loop of a batched call): before
       each step the loop tests ``k < max_steps`` and whether ANY lane's
@@ -155,6 +157,12 @@ def pcg_solve(
       then on its x, r, p and rz stay as they were, and ``rel`` is read from
       its frozen r.  Lanes outside the tensor never step.  The loop still
       runs while any lane is active.
+    * ``per_group=True`` with f [G, L, m] (the batch-wide loop under
+      ``jax.vmap`` over instance groups): a group steps while ANY of its
+      lanes is above its threshold and ``k < max_steps``, and then every
+      lane of the group steps, converged ones too; from then on the group's
+      x, r, p and rz stay as they were.  Every group that still steps has
+      taken k steps, so one count serves them all.
 
     In eager PyTorch the loop's test is one device-to-host sync per step;
     ``pcg_solve.steps`` counts the steps taken, over all calls (exactly under
@@ -165,8 +173,13 @@ def pcg_solve(
     norm_f = torch.linalg.vector_norm(f, dim=-1, keepdim=True)
     thresh = tol * torch.clamp(norm_f, min=1e-300)
 
+    if per_group and per_lane is not False:
+        raise ValueError("pcg_solve takes per_lane or per_group, not both")
+
     def above(r):
-        return torch.linalg.vector_norm(r, dim=-1, keepdim=True) > thresh
+        """The loop's test: per lane [..., 1], or per group [G, 1, 1]."""
+        hi = torch.linalg.vector_norm(r, dim=-1, keepdim=True) > thresh
+        return hi.any(dim=-2, keepdim=True) if per_group else hi
 
     x = precond(f)
     r = f - matvec(x)
@@ -174,11 +187,11 @@ def pcg_solve(
     p = z
     rz = torch.sum(r * z, dim=-1, keepdim=True)
 
-    if per_lane is False:
+    if per_lane is False and not per_group:
         active = None
     else:
         active = above(r)
-        if per_lane is not True:
+        if isinstance(per_lane, torch.Tensor):
             active = active & per_lane[..., None]
 
     k = 0

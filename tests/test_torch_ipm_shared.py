@@ -75,9 +75,11 @@ def test_fix_columns_matches_jax():
         np.testing.assert_allclose(getattr(tf, f).numpy(), np.asarray(getattr(jf, f)), rtol=1e-15, atol=0)
 
 
-def test_sparse_operator_is_not_ported_yet():
-    """The sparse entry points build the padded-ELL batch of the JAX package
-    (TINY's standard form is 7/21 = 33% dense, so ``_auto`` picks dense)."""
+def test_sparse_batch_matches_jax():
+    """``make_shared_batch_sparse`` builds the JAX package's padded-ELL
+    batch, field for field, and ``make_shared_batch_auto`` picks the
+    operator by density as JAX does (TINY's standard form is 7/21 = 33%
+    dense: dense by default, ELL under a 0.5 threshold)."""
     model = treader.parse_scp_text(TINY)
     jmodel = jreader.parse_scp_text(TINY)
     tb = tshared.make_shared_batch_sparse(model, 2, device="cpu")
