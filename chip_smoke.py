@@ -69,14 +69,27 @@ checkout.  Phases, each printed as it runs:
      mehrotra_solve_shared call, every lane against HiGHS; (c) the same
      with the plain Gram, and each group alone on the ungrouped engine;
      (d) ``python3 -m sypha_tpu_torch.bench`` as a subprocess, its JSON line
-     checked.
+     checked;
+ 11. the sweep and study tools (sypha_tpu_torch.benchmark), each ``main``
+     in process with --synthetic on the default device: (a) run_benchmark
+     --lp-only over the scp4 family against HiGHS; (b) run_benchmark's
+     MILP rows on scp41 and scp48 against scipy's MILP optimum; (c)
+     lp_parity --scipy over scp4 and scpnre, every row PASS; (d)
+     ell_vs_dense at 64 lanes on scp41, scpnre1 and scpnrg1, K1 launched on
+     both operators, which agree, lane 0 against HiGHS; (e) root_cut_study
+     on scpnre1, the dual bound never falling; each tool's wall and K1
+     launches; every K1 call of a tool recorded, and the kernel held against
+     its plain version and an f64 Gram, as in phase 2, on the last inputs of
+     each distinct shape the tool gave it (64 x 1000 x 11008 in (d), the
+     cut-extended node windows in (b) and (e)), timed at its largest.
 
 Any failed check raises, and the script exits non-zero; without a CUDA card
 it exits non-zero before doing anything.  The last line is the JSON status
 object and the line before it the card's name and power limit; the line
 before that lists each kernel with its launch count in the slices (slice A
 as ``launches``, then slices B and C, the B&B, the API, the in-process
-CLI run, the lane-sharded legs and the tensor-parallel ranks), its error
+CLI run, the lane-sharded legs, the tensor-parallel ranks and, per tool,
+phase 11), its error
 against the plain version, its times against the plain version and the
 one-call library einsum, and its bound (the larger of the f32 SYRK's FLOPs
 over the f32 peak and its bytes over HBM bandwidth), at the batched shapes
@@ -180,6 +193,45 @@ GROUPED_SHAPES = (
 )
 
 
+def hold_against_plain(torch, gram_mod, A32, w, where: str):
+    """One input pair of the Gram kernel, of any form (A [m, n] shared by the
+    lanes of w [B, n], A [B, m, n] per lane, or A [G, m, n] per group of w
+    [G, L, n]), against its plain version and an f64 Gram: max abs error
+    within 1e-5 of max |M|, finite, M == M^T bit for bit, per-entry error at
+    most 4x plain's.  Returns (max abs error vs f64, vs plain, max |M|,
+    per-entry relative error of kernel and of plain)."""
+    M = gram_mod.gram(A32, w)
+    plain = gram_mod.gram_reference(A32, w)
+    torch.cuda.synchronize()
+    if w.ndim == 3:
+        Aw = A32.double()[:, None] * w.double()[..., None, :]
+    else:
+        Aw = A32.double() * w.double()[:, None]
+    G64 = Aw @ Aw.mT
+    bound = Aw.abs() @ Aw.abs().mT  # per entry: sum_k |Aw_ik| |Aw_jk|
+    del Aw
+    scale = G64.abs().max().item()
+    err64 = (M.double() - G64).abs().max().item()
+    err_plain = (M - plain).abs().max().item()
+    check(err64 <= 1e-5 * scale, f"gram vs f64 at {where}: {err64} > 1e-5 * {scale}")
+    check(err_plain <= 1e-5 * scale, f"gram vs plain at {where}: {err_plain}")
+    check(torch.isfinite(M).all().item(), f"gram output finite at {where}")
+    check(torch.equal(M, M.mT), f"gram output symmetric bit for bit at {where}")
+    rel_k = entry_rel_err(M, G64, bound)
+    rel_p = entry_rel_err(plain, G64, bound)
+    check(rel_k <= 4 * rel_p, f"gram per-entry error at {where}: {rel_k} > 4 x plain {rel_p}")
+    return err64, err_plain, scale, rel_k, rel_p
+
+
+def gram_times(torch, gram_mod, A32, w):
+    """(kernel ms, plain ms, library ms), each a median of 20 CUDA-event-timed calls."""
+    return (
+        time_ms(torch, lambda: gram_mod.gram(A32, w)),
+        time_ms(torch, lambda: gram_mod.gram_reference(A32, w)),
+        time_ms(torch, lambda: gram_library_call(torch, A32, w)),
+    )
+
+
 def kernel_phase(torch, gram_mod, dev, card, shapes, form: str):
     """Phase 2 (and 10 (a)): the Gram kernel against its plain version and an
     f64 Gram, with one A shared by the lanes (``form`` "shared"), a distinct
@@ -206,38 +258,15 @@ def kernel_phase(torch, gram_mod, dev, card, shapes, form: str):
         else:
             w = 10.0 ** (torch.rand(w_shape, generator=gen, device=dev) * 9.0 - 6.0)
         before = (gram_mod.gram.launches_per_lane, gram_mod.gram.launches_grouped)
-        M = gram_mod.gram(A32, w)
+        err64, err_plain, scale, rel_k, rel_p = hold_against_plain(torch, gram_mod, A32, w, str((B, m, n)))
         counted = (gram_mod.gram.launches_per_lane - before[0], gram_mod.gram.launches_grouped - before[1])
         check(counted == (int(form == "per_lane"), int(form == "grouped")), f"per-form counts at {label}")
-        plain = gram_mod.gram_reference(A32, w)
-        torch.cuda.synchronize()
-        if form == "grouped":
-            Aw = A32.double()[:, None] * w.double()[..., None, :]
-        else:
-            Aw = A32.double() * w.double()[:, None]
-        G64 = Aw @ Aw.mT
-        bound = Aw.abs() @ Aw.abs().mT  # per entry: sum_k |Aw_ik| |Aw_jk|
-        del Aw
-        scale = G64.abs().max().item()
-        err64 = (M.double() - G64).abs().max().item()
-        err_plain = (M - plain).abs().max().item()
-        check(err64 <= 1e-5 * scale, f"gram vs f64 at {(B, m, n)}: {err64} > 1e-5 * {scale}")
-        check(err_plain <= 1e-5 * scale, f"gram vs plain at {(B, m, n)}: {err_plain}")
-        check(torch.isfinite(M).all().item(), "gram output finite")
-        check(torch.equal(M, M.mT), f"gram output symmetric bit for bit at {(B, m, n)}")
-        rel_k = entry_rel_err(M, G64, bound)
-        rel_p = entry_rel_err(plain, G64, bound)
-        check(rel_k <= 4 * rel_p, f"gram per-entry error at {(B, m, n)}: {rel_k} > 4 x plain {rel_p}")
-        del G64, bound
         if "full range" not in label:  # there the absolute error scales with w^2 ~ 1e30
             kernel_err = max(kernel_err, err_plain)
         entry_err = max(entry_err, rel_k)
         plain_entry_err = max(plain_entry_err, rel_p)
-        ms = time_ms(torch, lambda: gram_mod.gram(A32, w))
-        plain_ms = time_ms(torch, lambda: gram_mod.gram_reference(A32, w))
-        library_ms = time_ms(torch, lambda: gram_library_call(torch, A32, w))
-        times[label] = (ms, plain_ms, library_ms)
-        del A32, w, M, plain
+        times[label] = ms, plain_ms, library_ms = gram_times(torch, gram_mod, A32, w)
+        del A32, w
         print(
             f"[kernel] gram B={B} m={m} n={n} ({label}): max_abs_err vs f64 {err64:.3e} "
             f"(limit {1e-5 * scale:.3e}), vs plain {err_plain:.3e}; per-entry rel err "
@@ -763,11 +792,7 @@ def interfaces_phase(torch, st, gram_mod, dev, card, model_a, highs_a, model_b, 
         err = (M - gram_mod.gram_reference(A32, w)).abs().max().item()
         scale = gram_mod.gram_reference(A32, w).abs().max().item()
         check(err <= 1e-5 * scale, f"gram at B=1 ({m}, {n}): {err}")
-        k1_b1[(1, m, n)] = (
-            time_ms(torch, lambda: gram_mod.gram(A32, w)),
-            time_ms(torch, lambda: gram_mod.gram_reference(A32, w)),
-            time_ms(torch, lambda: gram_library_call(torch, A32, w)),
-        )
+        k1_b1[(1, m, n)] = gram_times(torch, gram_mod, A32, w)
         bound, by, bf16 = gram_bound(1, m, n)
         print(
             f"[interfaces] gram B=1 m={m} n={n}: kernel {k1_b1[(1, m, n)][0]:.4f} ms, plain "
@@ -1483,6 +1508,182 @@ def grouped_phase(torch, st, shared, gram_mod, dev, card):
     return launches, times, kernel_err, entry_err, plain_entry_err, walls
 
 
+def tools_phase(torch, gram_mod, shared, spd, card):
+    """Phase 11: the sweep and study tools (sypha_tpu_torch.benchmark), each
+    ``main`` called in process on --synthetic instances on the default
+    device, with K1's counts set to 0 just before and read just after:
+
+    (a) run_benchmark --lp-only over scp4: 10 rows OPTIMAL at HiGHS's
+    optimum; (b) run_benchmark MILP on scp41 and scp48: OPTIMAL at scipy's
+    MILP optimum, dual <= primal, the warm-up seconds apart; (c) lp_parity
+    --scipy over scp4 and scpnre: every row PASS; (d) ell_vs_dense at 64
+    lanes on scp41, scpnre1 and scpnrg1: K1 launched on both operators,
+    lanes converged on both within 1e-6, lane 0 within 1e-6 of HiGHS, at
+    most 1/8 of lanes flipping status; (e) root_cut_study scpnre1 over two
+    rounds: the dual bound never falls.
+
+    Every K1 call a tool makes is recorded, and after the tool (its counts
+    read) the last (A, w) of each distinct shape is held against the plain
+    Gram and an f64 Gram as in phase 2; the largest shape of each tool and
+    form is timed.  Returns ({tool: (K1 launches, of them per lane)}, {tool:
+    wall s}, {(tool, form): record of its shapes})."""
+    import atexit
+    import contextlib
+    import csv
+    import io
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    from scipy.optimize import Bounds, LinearConstraint, milp
+
+    from sypha_tpu_torch import benchmark
+    from sypha_tpu_torch.benchmark import ell_vs_dense, lp_parity, root_cut_study, run_benchmark
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tools_")
+    atexit.register(shutil.rmtree, tmp, ignore_errors=True)
+    launches, walls, held = {}, {}, {}
+
+    def model(name):
+        return benchmark.load(benchmark.require_source(name, None, True), name)
+
+    def rows(name):
+        with open(os.path.join(tmp, name), newline="") as f:
+            return list(csv.DictReader(f))
+
+    def hold_inputs(label, seen):
+        """The kernel against its plain version on the tool's own inputs."""
+        for form in ("shared", "per_lane", "grouped"):
+            pairs = [(key, A32, w) for key, (A32, w) in seen.items() if key[0] == form]
+            if not pairs:
+                continue
+            rec = {"shapes": len(pairs), "max_rel_err": 0.0, "max_entry_rel_err": 0.0,
+                   "plain_max_entry_rel_err": 0.0}
+            for key, A32, w in pairs:
+                where = f"{label} {form} A {list(A32.shape)} w {list(w.shape)}"
+                _, err_plain, scale, rel_k, rel_p = hold_against_plain(torch, gram_mod, A32, w, where)
+                rec["max_rel_err"] = max(rec["max_rel_err"], err_plain / scale if scale > 0 else 0.0)
+                rec["max_entry_rel_err"] = max(rec["max_entry_rel_err"], rel_k)
+                rec["plain_max_entry_rel_err"] = max(rec["plain_max_entry_rel_err"], rel_p)
+            # the largest call of the tool in this form, by the SYRK's FLOPs
+            _, A32, w = max(pairs, key=lambda p: p[2][..., 0].numel() * p[1].shape[-2] ** 2 * p[1].shape[-1])
+            B, m, n = w[..., 0].numel(), A32.shape[-2], A32.shape[-1]
+            rec["shape"] = [B, m, n]
+            rec["ms"], rec["plain_ms"], rec["library_ms"] = gram_times(torch, gram_mod, A32, w)
+            rec["bound_ms"], rec["bound_by"], _ = gram_bound(
+                B, m, n, matrices=1 if A32.ndim == 2 else A32.shape[0]
+            )
+            held[(label, form)] = rec
+            print(
+                f"[tools] {label}: K1 ({form}) held against the plain and the f64 Gram on the last "
+                f"inputs of each of its {rec['shapes']} shapes: max rel err vs plain "
+                f"{rec['max_rel_err']:.3e} (limit 1e-5), per-entry rel err {rec['max_entry_rel_err']:.3e} "
+                f"vs plain {rec['plain_max_entry_rel_err']:.3e} (limit 4x), symmetric; at its largest, "
+                f"B={B} m={m} n={n}: kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
+                f"library einsum {rec['library_ms']:.4f} ms (medians of 20), bound "
+                f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}) on {card}"
+            )
+
+    def run(label, tool, argv):
+        seen = {}  # (form, A shape, w shape) -> the last (A, w) given to K1
+        calls = [0]
+
+        def recording(real):
+            def gram(A32, w):
+                calls[0] += 1
+                form = "grouped" if w.ndim == 3 else "per_lane" if A32.ndim == 3 else "shared"
+                seen[(form, tuple(A32.shape), tuple(w.shape))] = (A32, w.clone())
+                return real(A32, w)
+            return gram
+
+        gram_mod.gram.launches = 0
+        gram_mod.gram.launches_per_lane = 0
+        buf = io.StringIO()
+        shared.gram, spd.gram = recording(gram_mod.gram), recording(gram_mod.gram)
+        try:
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = tool.main(argv + ["--synthetic"])
+            torch.cuda.synchronize()
+            walls[label] = time.perf_counter() - t0
+        finally:
+            shared.gram = spd.gram = gram_mod.gram
+        launches[label] = (gram_mod.gram.launches, gram_mod.gram.launches_per_lane)
+        out = buf.getvalue()
+        print("".join(f"[tools] {label} | {line}\n" for line in out.splitlines()), end="")
+        check(rc == 0, f"phase 11 {label}: rc {rc}")
+        check(launches[label][0] > 0, f"phase 11 {label}: K1 launched")
+        check(calls[0] == launches[label][0], f"phase 11 {label}: {calls[0]} K1 calls recorded, {launches[label][0]} launched")
+        print(
+            f"[tools] {label}: rc 0, wall {walls[label]:.3f} s, K1 launches {launches[label][0]} "
+            f"({launches[label][1]} per lane) on {card}"
+        )
+        hold_inputs(label, seen)
+        return out
+
+    # (a) LP rows over the scp4 family
+    run("run_benchmark lp", run_benchmark, ["--lp-only", "--families", "scp4", "--out", tmp])
+    lp_rows = rows("sypha_tpu_lp_scp4_results.csv")
+    check(len(lp_rows) == 10, f"phase 11 (a): {len(lp_rows)} rows")
+    worst = 0.0
+    for row in lp_rows:
+        name = row["instance"].split()[-1]
+        check(row["instance"] == f"synthetic {name}", f"phase 11 (a) row {row['instance']} named synthetic")
+        check(row["status"] == "OPTIMAL", f"phase 11 (a) {name}: {row['status']}")
+        ref = highs_objective(model(name))
+        worst = max(worst, abs(float(row["primal"]) - ref) / abs(ref))
+    check(worst <= 1e-6, f"phase 11 (a) primal vs HiGHS: max rel {worst}")
+    print(f"[tools] (a) 10 scp4 LP rows OPTIMAL, primal vs HiGHS max rel {worst:.2e}")
+
+    # (b) MILP rows on scp41 and scp48
+    run("run_benchmark milp", run_benchmark,
+        ["--families", "scp4", "--instances", "scp41,scp48", "--time-limit", "60", "--out", tmp])
+    milp_rows = rows("sypha_tpu_milp_scp4_results.csv")
+    check([r["instance"] for r in milp_rows] == ["synthetic scp41", "synthetic scp48"], "phase 11 (b) rows")
+    for row in milp_rows:
+        m = model(row["instance"].split()[-1])
+        ip = milp(c=m.costs, constraints=LinearConstraint(m.dense_matrix(), lb=1.0),
+                  integrality=np.ones(m.ncols), bounds=Bounds(0, 1))
+        check(ip.status == 0, f"scipy MILP on {row['instance']}: {ip.message}")
+        check(row["status"] == "OPTIMAL", f"phase 11 (b) {row['instance']}: {row['status']}")
+        check(abs(float(row["incumbent"]) - ip.fun) <= 1e-6, f"phase 11 (b) {row['instance']}: {row['incumbent']} vs {ip.fun}")
+        check(float(row["dual"]) <= float(row["primal"]) + 1e-6, f"phase 11 (b) {row['instance']}: dual above primal")
+        print(
+            f"[tools] (b) {row['instance']}: OPTIMAL {row['incumbent']} = scipy {ip.fun:.6f}, dual {row['dual']}, "
+            f"time_solver_s {row['time_solver_s']}, time_compile_s {row['time_compile_s']} on {card}"
+        )
+
+    # (c) LP parity against HiGHS
+    out = run("lp_parity", lp_parity, ["--scipy", "--families", "scp4,scpnre", "--csv-dir", tmp])
+    parity = rows("scp4_sypha_tpu_lp_results.csv") + rows("scpnre_sypha_tpu_lp_results.csv")
+    check(len(parity) == 15 and all(r["exit_code"] == "0" for r in parity), "phase 11 (c) every row PASS")
+    check(out.splitlines()[-1] == "15/15 passed", f"phase 11 (c): {out.splitlines()[-1]}")
+
+    # (d) the ELL against the dense operator
+    out = run("ell_vs_dense", ell_vs_dense,
+              ["--lanes", "64", "--instances", "scp41,scpnre1,scpnrg1", "--out", tmp])
+    records = [json.loads(line) for line in out.splitlines() if line.startswith("{")]
+    check(len(records) == 3, "phase 11 (d) records")
+    for rec in records:
+        name = rec["instance"]
+        ref = highs_objective(model(name.split()[-1]))
+        check(rec["dense_gram_launches"] > 0 and rec["sparse_gram_launches"] > 0, f"phase 11 (d) {name}: K1 on both operators")
+        check(rec["lanes_flipped"] <= 64 // 8, f"phase 11 (d) {name}: {rec['lanes_flipped']} lanes flipped")
+        check(rec["max_rel_diff_converged"] <= 1e-6, f"phase 11 (d) {name}: operators differ by {rec['max_rel_diff_converged']}")
+        rel = max(abs(rec[f"{op}_obj"] - ref) / abs(ref) for op in ("dense", "sparse"))
+        check(rel <= 1e-6, f"phase 11 (d) {name}: lane 0 vs HiGHS rel {rel}")
+        print(f"[tools] (d) {name}: lane 0 vs HiGHS {ref:.6f} max rel {rel:.2e} on {card}")
+
+    # (e) the root cut study
+    out = run("root_cut_study", root_cut_study, ["scpnre1", "--rounds", "2"])
+    duals = [json.loads(line)["dual"] for line in out.splitlines() if line.startswith('{"round"') and '"dual"' in line]
+    check(len(duals) >= 2, f"phase 11 (e): {len(duals)} rounds")
+    check(all(b >= a - 1e-6 for a, b in zip(duals, duals[1:])), f"phase 11 (e) dual bound falls: {duals}")
+    print(f"[tools] (e) dual bound per round {duals}")
+    return launches, walls, held
+
+
 def scpnre_text() -> str:
     from sypha_tpu_torch.testing import synthetic_scp
 
@@ -1738,10 +1939,16 @@ def main() -> int:
         torch, st, shared, gram_mod, dev, card
     )
     timers.stop("grouped")
+
+    # -- phase 11: the sweep and study tools -----------------------------------
+    timers.start("tools")
+    launches_11, walls_11, held_11 = tools_phase(torch, gram_mod, shared, spd, card)
+    timers.stop("tools")
     print(timers.report())
     print(f"phase 8 walls (s): {json.dumps(walls)} on {card}")
     print(f"phase 9 walls (s): {json.dumps(walls_9)}; iterations {json.dumps(iters_9)} on {card}")
     print(f"phase 10 walls (s): {json.dumps(walls_10)} on {card}")
+    print(f"phase 11 walls (s): {json.dumps(walls_11)} on {card}")
     for label, (full_s, solve_s, k1, shared_s) in latency.items():
         print(
             f"single-LP latency, {label}: {full_s:.4f} s with pad_lp, {solve_s:.4f} s solve only, "
@@ -1772,6 +1979,8 @@ def main() -> int:
         "launches_cli": launches_cli - per_lane_cli,
         "launches_mesh": launches_mesh,
         "launches_tp": launches_tp,
+        "launches_tools": {tool: n - per_lane for tool, (n, per_lane) in launches_11.items()},
+        "tools": {tool: rec for (tool, form), rec in held_11.items() if form == "shared"},
         "max_abs_err": kernel_err,
         "ms": times["cell A"][0],
         "plain_ms": times["cell A"][1],
@@ -1808,6 +2017,8 @@ def main() -> int:
         "launches_api": per_lane_api,
         "launches_cli": per_lane_cli,
         "launches_mesh": launches_mesh_lanes,
+        "launches_tools": {tool: per_lane for tool, (_, per_lane) in launches_11.items()},
+        "tools": {tool: rec for (tool, form), rec in held_11.items() if form == "per_lane"},
         "max_abs_err": kernel_err_pl,
         "ms": times_pl["per-lane cell A"][0],
         "plain_ms": times_pl["per-lane cell A"][1],

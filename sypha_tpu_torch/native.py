@@ -12,6 +12,13 @@ The library is a host-side speed-up and nothing else: if it is missing and
 cannot be built, or SYPHA_TPU_NO_NATIVE is set, every entry point returns
 None and its callers use their numpy implementations, with identical
 results.
+
+Two switches serve the offline tuning of the exact-cover engine
+(sypha_tpu_torch.benchmark.face_replay, tune_exact_cover), as in the JAX
+package: SYPHA_TPU_NATIVE_LIB names an alternate build of the library,
+loaded (built there first, if absent) in place of the hashed one, and
+SYPHA_TPU_DUMP_FACES names a directory where every ``exact_cover`` call
+saves its exact arguments as ``face_<ns>.npz`` before the native call.
 """
 
 from __future__ import annotations
@@ -21,6 +28,7 @@ import hashlib
 import os
 import subprocess
 import threading
+import time
 from pathlib import Path
 from typing import Optional
 
@@ -59,7 +67,7 @@ def library_path() -> Path:
 
 
 def _build(lib: Path) -> bool:
-    BUILD_DIR.mkdir(exist_ok=True)
+    lib.parent.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
     try:
         subprocess.run(
@@ -123,19 +131,24 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         i64p, i32p, ctypes.c_int64,
         ctypes.c_double, ctypes.c_double, f64p, u8p,
     ]
-    lib.sypha_exact_cover_cuts.restype = ctypes.c_int
-    lib.sypha_exact_cover_cuts.argtypes = [
-        u64p, ctypes.c_int64, f64p, u8p, ctypes.c_int64,
-        i64p, i32p, ctypes.c_int64,
-        ctypes.c_double, ctypes.c_double, f64p, u8p,
-        f64p, f64p, f64p, ctypes.c_int64,
-    ]
+    # an alternate build (SYPHA_TPU_NATIVE_LIB, face_replay --lib) may
+    # predate the cut-row entry: face_replay then replays a face without its
+    # cut rows, and exact_cover refuses cut rows
+    if hasattr(lib, "sypha_exact_cover_cuts"):
+        lib.sypha_exact_cover_cuts.restype = ctypes.c_int
+        lib.sypha_exact_cover_cuts.argtypes = [
+            u64p, ctypes.c_int64, f64p, u8p, ctypes.c_int64,
+            i64p, i32p, ctypes.c_int64,
+            ctypes.c_double, ctypes.c_double, f64p, u8p,
+            f64p, f64p, f64p, ctypes.c_int64,
+        ]
     return lib
 
 
 def get_lib() -> Optional[ctypes.CDLL]:
     """The loaded native library, building it on first use; None if unavailable.
-    Disable with SYPHA_TPU_NO_NATIVE=1."""
+    Disable with SYPHA_TPU_NO_NATIVE=1; SYPHA_TPU_NATIVE_LIB=path loads (or
+    builds at) that path instead of ``library_path()``."""
     global _lib, _tried
     if _lib is not None:
         return _lib
@@ -145,7 +158,8 @@ def get_lib() -> Optional[ctypes.CDLL]:
         _tried = True
         if os.environ.get("SYPHA_TPU_NO_NATIVE"):
             return None
-        lib = library_path()
+        override = os.environ.get("SYPHA_TPU_NATIVE_LIB")
+        lib = Path(override) if override else library_path()
         if not lib.exists() and not _build(lib):
             return None
         try:
@@ -287,6 +301,28 @@ def greedy_set_cover(model):
     return (float(obj.value), selected[:nsel].astype(np.int64))
 
 
+def save_face(path, ar, active, budget, deadline_sec, duals, cuts=None):
+    """Save one exact-cover face, the native call's arguments, as ``path``
+    (.npz) for offline replay (benchmark.face_replay), with the JAX
+    package's keys: ``ar`` the model's ``_arrays``, ``active`` uint8,
+    ``duals`` per covering row, ``cuts`` an optional (w, coef, rhs)."""
+    extra = {}
+    if cuts is not None:
+        extra = dict(
+            cut_w=np.asarray(cuts[0], dtype=np.float64),
+            cut_coef=np.asarray(cuts[1], dtype=np.float64),
+            cut_rhs=np.asarray(cuts[2], dtype=np.float64),
+        )
+    np.savez_compressed(
+        path,
+        masks=ar.masks, costs=ar.costs, active=active,
+        col_ptr=ar.col_ptr, col_idx=ar.col_idx,
+        nrows=np.int64(ar.nrows), nwords=np.int64(ar.nwords),
+        budget=np.float64(budget), deadline=np.float64(deadline_sec),
+        duals=duals, **extra,
+    )
+
+
 def exact_cover(model, budget: float, deadline_sec: float, duals=None,
                 cuts=None):
     """Native implicit enumeration (sypha_exact_cover): find a cover with
@@ -313,6 +349,17 @@ def exact_cover(model, budget: float, deadline_sec: float, duals=None,
         )
         if len(y) < ar.nrows:
             y = np.concatenate([y, np.zeros(ar.nrows - len(y))])
+    if cuts is not None and not hasattr(lib, "sypha_exact_cover_cuts"):
+        # only an alternate build (SYPHA_TPU_NATIVE_LIB) can lack it; the
+        # plain entry would search without the cut rows
+        raise RuntimeError(
+            f"the native library {getattr(lib, '_name', lib)} has no sypha_exact_cover_cuts entry, "
+            "and exact_cover was given cut rows"
+        )
+    dump_dir = os.environ.get("SYPHA_TPU_DUMP_FACES")
+    if dump_dir:
+        os.makedirs(dump_dir, exist_ok=True)
+        save_face(os.path.join(dump_dir, f"face_{time.monotonic_ns()}"), ar, active, budget, deadline_sec, y, cuts)
     if cuts is not None:
         cut_w, cut_coef, cut_rhs = cuts
         cut_w = np.ascontiguousarray(

@@ -122,9 +122,10 @@ def cpu_forbidden(monkeypatch):
     ["resolve_device", "pad_lp", "pad_standard_form", "pad_standard_form_ell", "ell_from_rows",
      "ell_from_dense", "make_shared_batch_sparse", "make_shared_batch_auto", "branch_and_bound",
      "Solver", "make_mesh", "solve_shared_batch_sharded", "solve_lp_batch_sharded",
-     "solve_node_batch_sharded", "initialize_distributed", "graft_entry"],
+     "solve_node_batch_sharded", "initialize_distributed", "graft_entry",
+     "benchmark.run_benchmark", "benchmark.lp_parity", "benchmark.ell_vs_dense", "benchmark.root_cut_study"],
 )
-def test_entry_point_without_a_card_raises(no_card, cpu_forbidden, entry):
+def test_entry_point_without_a_card_raises(no_card, cpu_forbidden, tmp_path, entry):
     import numpy as np
 
     import sypha_tpu_torch.io.standard_form as sf
@@ -135,6 +136,7 @@ def test_entry_point_without_a_card_raises(no_card, cpu_forbidden, entry):
     from sypha_tpu_torch.ops import ell
     from sypha_tpu_torch.parallel import distributed, mesh
     from sypha_tpu_torch import graft_entry
+    from sypha_tpu_torch.benchmark import ell_vs_dense, lp_parity, root_cut_study, run_benchmark
 
     model = _tiny_model()
     rows = [(np.asarray(r, np.int32), np.ones(len(r))) for r in model.rows]
@@ -161,9 +163,18 @@ def test_entry_point_without_a_card_raises(no_card, cpu_forbidden, entry):
         "initialize_distributed": lambda: distributed.initialize_distributed(
             "file:///nonexistent/rendezvous", 2, 0, backend="gloo"),
         "graft_entry": lambda: graft_entry.entry(),
+        "benchmark.run_benchmark": lambda: run_benchmark.main(
+            ["--lp-only", "--families", "scp4", "--synthetic", "--out", str(tmp_path)]),
+        "benchmark.lp_parity": lambda: lp_parity.main(
+            ["--scipy", "--families", "scp4", "--synthetic", "--csv-dir", str(tmp_path)]),
+        "benchmark.ell_vs_dense": lambda: ell_vs_dense.main(
+            ["--instances", "scp41", "--synthetic", "--out", str(tmp_path)]),
+        "benchmark.root_cut_study": lambda: root_cut_study.main(["scp41", "--synthetic"]),
     }
     with pytest.raises(RuntimeError, match="no CUDA device.*device=\"cpu\""):
         calls[entry]()
+    # a tool stops before it writes any row
+    assert list(tmp_path.iterdir()) == []
 
 
 def test_cli_without_a_card_fails_before_solving(no_card, cpu_forbidden, tmp_path, capsys):
