@@ -82,14 +82,24 @@ checkout.  Phases, each printed as it runs:
      its plain version and an f64 Gram, as in phase 2, on the last inputs of
      each distinct shape the tool gave it (64 x 1000 x 11008 in (d), the
      cut-extended node windows in (b) and (e)), timed at its largest.
+ 12. the B&B's operator life cycle and resumable search: (a) phase 6's
+     instance under phase 6 (b)'s configuration with the compact re-solve
+     off (it delegates the tree to a nested search that is never
+     checkpointed), uninterrupted, then cut at max_nodes=1 with a
+     checkpoint in a temporary directory, then resumed from it: OPTIMAL at scipy's optimum and at the uninterrupted
+     objective within 1e-9, K1 launched in every leg; (b) the padded-ELL
+     operator cache over phase 6's runs: builds, hits and the MB of ELL
+     tensors not uploaded, every operator built there equal bit for bit to
+     a fresh build of its rows, then run (b) again with the cache emptied
+     before every call, equal in status and objective, both walls printed.
 
 Any failed check raises, and the script exits non-zero; without a CUDA card
 it exits non-zero before doing anything.  The last line is the JSON status
 object and the line before it the card's name and power limit; the line
 before that lists each kernel with its launch count in the slices (slice A
 as ``launches``, then slices B and C, the B&B, the API, the in-process
-CLI run, the lane-sharded legs, the tensor-parallel ranks and, per tool,
-phase 11), its error
+CLI run, the lane-sharded legs, the tensor-parallel ranks, per tool
+phase 11 and, per leg, phase 12), its error
 against the plain version, its times against the plain version and the
 one-call library einsum, and its bound (the larger of the f32 SYRK's FLOPs
 over the f32 peak and its bytes over HBM bandwidth), at the batched shapes
@@ -422,8 +432,9 @@ def milp_phase(torch, st, gram_mod, card):
     """Phase 6: branch and bound on a seeded scp4x-class instance with a root
     gap, (a) default configuration, (b) exact closure and cuts off.
 
-    Returns the K1 launches of both runs, the instance's seed and its MILP
-    optimum."""
+    Returns the K1 launches of both runs, the instance's seed, its MILP
+    optimum and, per run, its EllOperatorLog, result and wall (phase 12
+    (b))."""
     import numpy as np
     from scipy.optimize import Bounds, LinearConstraint, linprog, milp
 
@@ -457,15 +468,18 @@ def milp_phase(torch, st, gram_mod, card):
         "a": {},
         "b": {"exact_closure": False, "cuts_enabled": False, "max_nodes": 192},
     }
+    ell_runs = {}
     for name, extra in runs.items():
         cfg = st.SolverConfig(verbosity=3)
         cfg = cfg.replace(bnb=cfg.bnb.replace(hard_time_limit_sec=120.0, **extra))
         _NodeLpSolver.window_stats.clear()
         gram_mod.gram.launches = 0
         t0 = time.perf_counter()
-        r = branch_and_bound(model, cfg)
+        with EllOperatorLog() as ell_log:
+            r = branch_and_bound(model, cfg)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        ell_runs[name] = (ell_log, r, wall)
         k1 = gram_mod.gram.launches
         windows = dict(_NodeLpSolver.window_stats)
         launches += k1
@@ -494,7 +508,188 @@ def milp_phase(torch, st, gram_mod, card):
             check(r.status in (st.MilpStatus.OPTIMAL, st.MilpStatus.FEASIBLE), f"run (b) status {r.status.name}")
             check(r.objective >= opt - 1e-6, f"run (b) incumbent {r.objective} below the optimum {opt}")
             check(r.dual_bound <= opt + 1e-6, f"run (b) dual bound {r.dual_bound} above the optimum {opt}")
-    return launches, seed, opt
+    return launches, seed, opt, ell_runs
+
+
+class EllOperatorLog:
+    """Watches the B&B's calls of io.standard_form.pad_standard_form_ell
+    (through milp.bnb's name for it) while the block runs: per call whether
+    the operator came from the cache and its bytes, and per build the rows
+    it was built from, so that phase 12 can hold each operator against a
+    fresh build of its rows.  With ``clear_cache`` the cache is emptied
+    before every call, so that every call builds and uploads."""
+
+    def __init__(self, clear_cache: bool = False):
+        self.clear_cache = clear_cache
+        self.calls = []  # (hit, bytes of the four ELL tensors)
+        self.built = []  # (rows, ell_from_rows keywords, EllMatrix)
+
+    def __enter__(self):
+        from sypha_tpu_torch.io import standard_form
+        from sypha_tpu_torch.milp import bnb
+
+        self._bnb, self._sf = bnb, standard_form
+        real = standard_form.pad_standard_form_ell
+
+        def watched(row_data, rhs, costs, n_struct, m_pad, n_pad, device=None):
+            if self.clear_cache:
+                standard_form._ELL_DEVICE_CACHE.clear()
+            hits = real.hits
+            lp = real(row_data, rhs, costs, n_struct, m_pad, n_pad, device=device)
+            hit = real.hits > hits
+            ell = lp.A
+            tensors = (ell.row_idx, ell.row_val, ell.col_idx, ell.col_val)
+            self.calls.append((hit, sum(t.numel() * t.element_size() for t in tensors)))
+            if not hit:
+                rows = [(idx.copy(), val.copy()) for idx, val in row_data]
+                kw = dict(n_struct=n_struct, m_pad=m_pad, n_pad=n_pad, device=ell.device)
+                self.built.append((rows, kw, ell))
+            return lp
+
+        bnb.pad_standard_form_ell = watched
+        return self
+
+    def __exit__(self, *exc):
+        self._bnb.pad_standard_form_ell = self._sf.pad_standard_form_ell
+
+    @property
+    def builds(self) -> int:
+        return sum(not hit for hit, _ in self.calls)
+
+    @property
+    def hits(self) -> int:
+        return sum(hit for hit, _ in self.calls)
+
+    @property
+    def mb_not_uploaded(self) -> float:
+        return sum(nbytes for hit, nbytes in self.calls if hit) / 1e6
+
+
+def checkpoint_phase(torch, st, gram_mod, card, seed: int, opt: float):
+    """Phase 12 (a): phase 6's instance under phase 6 (b)'s configuration
+    with the compact re-solve off, uninterrupted, then cut at
+    ``max_nodes=1`` with a checkpoint written at every loop head, then
+    resumed from it.
+
+    Returns the walls and K1 launches of the three legs."""
+    import os
+    import pickle
+    import shutil
+    import tempfile
+
+    from sypha_tpu_torch.milp import branch_and_bound
+    from sypha_tpu_torch.milp.bnb import _NodeLpSolver
+
+    model = st.parse_scp_text(synthetic_scp_text(seed), name=f"syn_scp4x_{seed}")
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_checkpoint_")
+    ckpt = os.path.join(out_dir, "bnb.ckpt")
+    # compact_resolve off: at this instance the root's reductions leave 83 of
+    # 1000 columns, and the B&B (the JAX package's too) then delegates the
+    # whole tree to a nested search that it never checkpoints, so a cut run
+    # would end without a file
+    base = {
+        "exact_closure": False, "cuts_enabled": False, "compact_resolve": False,
+        "max_nodes": 192, "hard_time_limit_sec": 120.0,
+    }
+    legs = {
+        "uninterrupted": {},
+        "cut": {"max_nodes": 1, "checkpoint_path": ckpt, "checkpoint_interval_sec": 0.0},
+        "resumed": {"checkpoint_path": ckpt, "checkpoint_interval_sec": 30.0},
+    }
+    out, walls, launches = {}, {}, {}
+    saved = None
+    for leg, extra in legs.items():
+        cfg = st.SolverConfig(verbosity=3)
+        cfg = cfg.replace(bnb=cfg.bnb.replace(**{**base, **extra}))
+        _NodeLpSolver.window_stats.clear()
+        gram_mod.gram.launches = 0
+        t0 = time.perf_counter()
+        r = branch_and_bound(model, cfg)
+        torch.cuda.synchronize()
+        walls[leg] = time.perf_counter() - t0
+        launches[leg] = gram_mod.gram.launches
+        windows = dict(_NodeLpSolver.window_stats)
+        out[leg] = r
+        print(
+            f"[checkpoint] {leg}: {r.status.name} objective {r.objective:.6f} dual bound "
+            f"{r.dual_bound:.6f} nodes {r.nodes_processed} windows {windows} wall "
+            f"{walls[leg]:.3f} s gram.launches={launches[leg]} on {card}"
+        )
+        check(windows.get("failed", 0) == 0, f"phase 12 (a) {leg}: no window degraded")
+        check(launches[leg] > 0 and windows.get("ell", 0) > 0, f"phase 12 (a) {leg}: K1 launched in ELL node windows")
+        if leg == "cut":
+            check(r.status == st.MilpStatus.FEASIBLE, f"phase 12 (a) cut: status {r.status.name}")
+            check(os.path.exists(ckpt), f"phase 12 (a): checkpoint {ckpt} written")
+            with open(ckpt, "rb") as f:
+                saved = pickle.load(f)["processed"]
+            print(f"[checkpoint] the resume starts from {saved} processed nodes ({ckpt})")
+        else:
+            check(r.status == st.MilpStatus.OPTIMAL, f"phase 12 (a) {leg}: status {r.status.name}")
+            check(abs(r.objective - opt) <= 1e-9, f"phase 12 (a) {leg}: objective {r.objective} vs scipy {opt}")
+    check(
+        abs(out["resumed"].objective - out["uninterrupted"].objective) <= 1e-9,
+        f"phase 12 (a): resumed {out['resumed'].objective} vs uninterrupted {out['uninterrupted'].objective}",
+    )
+    check(out["resumed"].nodes_processed > saved, f"phase 12 (a): the resume went on from {saved} nodes")
+    shutil.rmtree(out_dir)
+    return walls, launches
+
+
+def cache_phase(torch, st, gram_mod, card, seed: int, opt: float, ell_runs):
+    """Phase 12 (b): the ELL operator cache over phase 6's B&B runs: builds,
+    hits and the MB not uploaded; every operator built there equal bit for
+    bit to a fresh build of its rows (nothing wrote into a shared one);
+    then run (b) again with the cache emptied before every call.
+
+    Returns the cleared run's wall and K1 launches."""
+    from sypha_tpu_torch.milp import branch_and_bound
+    from sypha_tpu_torch.milp.bnb import _NodeLpSolver
+    from sypha_tpu_torch.ops.ell import ell_from_rows
+
+    for name, (log, r, wall) in ell_runs.items():
+        print(
+            f"[cache] phase 6 run ({name}): {len(log.calls)} operator calls, builds {log.builds}, "
+            f"hits {log.hits}, {log.mb_not_uploaded:.4f} MB of ELL tensors not uploaded, wall "
+            f"{wall:.3f} s on {card}"
+        )
+    check(sum(log.hits for log, _, _ in ell_runs.values()) > 0, "phase 12 (b): the cache hit in phase 6")
+    held = 0
+    for log, _, _ in ell_runs.values():
+        for rows, kw, ell in log.built:
+            fresh = ell_from_rows(rows, **kw)
+            for field in ("row_idx", "row_val", "col_idx", "col_val"):
+                check(
+                    torch.equal(getattr(ell, field), getattr(fresh, field)),
+                    f"phase 12 (b): cached operator's {field} as built",
+                )
+            held += 1
+    print(f"[cache] {held} operators equal bit for bit to a fresh build of their rows")
+
+    model = st.parse_scp_text(synthetic_scp_text(seed), name=f"syn_scp4x_{seed}")
+    log_b, r_b, wall_b = ell_runs["b"]
+    cfg = st.SolverConfig(verbosity=3)
+    cfg = cfg.replace(bnb=cfg.bnb.replace(
+        hard_time_limit_sec=120.0, exact_closure=False, cuts_enabled=False, max_nodes=192,
+    ))
+    _NodeLpSolver.window_stats.clear()
+    gram_mod.gram.launches = 0
+    t0 = time.perf_counter()
+    with EllOperatorLog(clear_cache=True) as cleared:
+        r = branch_and_bound(model, cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1 = gram_mod.gram.launches
+    print(
+        f"[cache] run (b) with the cache emptied before each call: {r.status.name} objective "
+        f"{r.objective:.6f} nodes {r.nodes_processed} builds {cleared.builds} hits {cleared.hits} "
+        f"wall {wall:.3f} s against {wall_b:.3f} s with the cache (phase 6) gram.launches={k1} on {card}"
+    )
+    check(cleared.hits == 0 and cleared.builds == len(cleared.calls) > 0, "phase 12 (b): the emptied cache never hit")
+    check(k1 > 0, "phase 12 (b): K1 launched with the cache emptied")
+    check(r.status == r_b.status, f"phase 12 (b): status {r.status.name} vs {r_b.status.name} with the cache")
+    check(abs(r.objective - r_b.objective) <= 1e-9, f"phase 12 (b): objective {r.objective} vs {r_b.objective}")
+    check(abs(r.objective - opt) <= 1e-9, f"phase 12 (b): objective {r.objective} vs scipy {opt}")
+    return wall, k1
 
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): f32 outside the tensor
@@ -1901,7 +2096,7 @@ def main() -> int:
 
     # -- phase 6: MILP, branch and bound -------------------------------------
     timers.start("milp")
-    launches_bnb, milp_seed, milp_opt = milp_phase(torch, st, gram_mod, card)
+    launches_bnb, milp_seed, milp_opt, ell_runs = milp_phase(torch, st, gram_mod, card)
     timers.stop("milp")
 
     # -- phase 7: the user entry points ---------------------------------------
@@ -1944,11 +2139,21 @@ def main() -> int:
     timers.start("tools")
     launches_11, walls_11, held_11 = tools_phase(torch, gram_mod, shared, spd, card)
     timers.stop("tools")
+
+    # -- phase 12: checkpoint/resume and the ELL operator cache ------------------
+    timers.start("lifecycle")
+    walls_12, launches_12 = checkpoint_phase(torch, st, gram_mod, card, milp_seed, milp_opt)
+    walls_12["cache emptied (b)"], launches_12["cache emptied (b)"] = cache_phase(
+        torch, st, gram_mod, card, milp_seed, milp_opt, ell_runs
+    )
+    walls_12["cache (b), phase 6"] = ell_runs["b"][2]
+    timers.stop("lifecycle")
     print(timers.report())
     print(f"phase 8 walls (s): {json.dumps(walls)} on {card}")
     print(f"phase 9 walls (s): {json.dumps(walls_9)}; iterations {json.dumps(iters_9)} on {card}")
     print(f"phase 10 walls (s): {json.dumps(walls_10)} on {card}")
     print(f"phase 11 walls (s): {json.dumps(walls_11)} on {card}")
+    print(f"phase 12 walls (s): {json.dumps(walls_12)}; K1 launches {json.dumps(launches_12)} on {card}")
     for label, (full_s, solve_s, k1, shared_s) in latency.items():
         print(
             f"single-LP latency, {label}: {full_s:.4f} s with pad_lp, {solve_s:.4f} s solve only, "
@@ -1980,6 +2185,7 @@ def main() -> int:
         "launches_mesh": launches_mesh,
         "launches_tp": launches_tp,
         "launches_tools": {tool: n - per_lane for tool, (n, per_lane) in launches_11.items()},
+        "launches_lifecycle": launches_12,
         "tools": {tool: rec for (tool, form), rec in held_11.items() if form == "shared"},
         "max_abs_err": kernel_err,
         "ms": times["cell A"][0],

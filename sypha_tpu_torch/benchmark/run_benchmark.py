@@ -10,7 +10,9 @@ LP rows are ``solve_lp(pad_lp(model))``; MILP rows ``branch_and_bound``
 with the hard time limit.  ``time_compile_s`` is the solver's one-time
 warm-up (``MilpResult.compile_time_sec``: the Gram kernel's build and one
 short window per variant), outside its time budget, and ``time_solver_s``
-is net of it.  Before each family's timed rows its first instance is
+is net of it.  ``FAMILY_BNB_OVERRIDES`` sets BnbOptions per family (the
+warm-up's and the timed rows', ``--synthetic`` stand-ins included), as in
+the JAX tool.  Before each family's timed rows its first instance is
 solved once, untimed, unless ``--no-warmup``.  The CSV is rewritten after
 every row.  The default ``--out`` is ``sypha_tpu_torch/benchmark/results/``
 (git-ignored): ``benchmark/results/`` holds the JAX package's rows, from
@@ -32,6 +34,14 @@ FIELDS = [
     "mip_gap_pct", "iterations", "time_pre_s", "time_solver_s",
     "time_compile_s", "time_total_s", "incumbent", "status",
 ]
+
+# Per-family BnbOptions overrides, the JAX tool's: scpnrg's node windows run
+# on the dense operator, where ``auto`` would pick padded ELL (1.83%
+# density).  On the H100 the ELL operator is 0.87-0.98x the dense one's
+# speed at this class (ell_vs_dense, 64 and 128 lanes).
+FAMILY_BNB_OVERRIDES = {
+    "scpnrg": {"node_operator": "dense"},
+}
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -77,8 +87,11 @@ def main(argv=None) -> int:
     keep = {s.strip() for s in args.instances.split(",") if s.strip()}
     merge_base = _read_base(out_csv) if args.merge else None
 
-    def milp_cfg(limit: float) -> SolverConfig:
-        return SolverConfig(verbosity=1, bnb=BnbOptions(hard_time_limit_sec=limit))
+    def milp_cfg(fam: str, limit: float) -> SolverConfig:
+        return SolverConfig(
+            verbosity=1,
+            bnb=BnbOptions(hard_time_limit_sec=limit, **FAMILY_BNB_OVERRIDES.get(fam, {})),
+        )
 
     rows = []
     for fam in args.families.split(","):
@@ -91,7 +104,7 @@ def main(argv=None) -> int:
             if args.lp_only:
                 solve_lp(pad_lp(wm, device=dev), IpmOptions())
             else:
-                branch_and_bound(wm, milp_cfg(min(30.0, args.time_limit)), device=dev)
+                branch_and_bound(wm, milp_cfg(fam, min(30.0, args.time_limit)), device=dev)
             print(
                 f"[{fam}] warmup on {label(wname, wsrc)}: {time.monotonic() - t_w:.1f}s "
                 "(kernel build, library handles; excluded from timed rows)"
@@ -119,7 +132,7 @@ def main(argv=None) -> int:
                     status=status,
                 )
             else:
-                r = branch_and_bound(model, milp_cfg(args.time_limit), device=dev)
+                r = branch_and_bound(model, milp_cfg(fam, args.time_limit), device=dev)
                 t_solver = time.monotonic() - t1
                 t_compile = r.compile_time_sec
                 status = {

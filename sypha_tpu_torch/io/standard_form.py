@@ -10,11 +10,15 @@ sypha_tpu/io/standard_form.py (rows to a multiple of 8, columns to 128), so
 the port's lanes line up with the JAX package's, iterate for iterate.
 
 ``pad_standard_form_ell`` is the padded-ELL counterpart of
-``pad_standard_form``: same padding, with ``A`` an ops.ell.EllMatrix.
+``pad_standard_form``: same padding, with ``A`` an ops.ell.EllMatrix, kept
+in a small content-addressed cache so that equal rows on one device share
+one operator.
 """
 
 from __future__ import annotations
 
+import hashlib
+import threading
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -23,6 +27,13 @@ import torch
 from sypha_tpu_torch.core.device import resolve_device
 from sypha_tpu_torch.core.problem import PaddedLp, ScpModel
 from sypha_tpu_torch.ops.ell import ell_from_rows
+
+# EllMatrix operators keyed by (content digest, device), see
+# pad_standard_form_ell; an insertion-ordered dict of at most 4 entries,
+# the oldest dropped first
+_ELL_DEVICE_CACHE: dict = {}
+# parallel/mesh runs one host thread per shard
+_ELL_CACHE_LOCK = threading.Lock()
 
 
 def _round_up(x: int, m: int) -> int:
@@ -130,6 +141,21 @@ def pad_lp(
     )
 
 
+def _ell_key(row_data, n_struct: int, m_pad: int, n_pad: int, device: torch.device):
+    """The operator's cache key: a blake2b digest of (dims, each row's indices
+    as int32 and values as f64), the JAX package's key, and the device (a
+    CUDA device with its index, so that shards on different cards never
+    share an operator)."""
+    h = hashlib.blake2b(digest_size=16)
+    h.update(np.asarray([n_struct, m_pad, n_pad, len(row_data)], dtype=np.int64).tobytes())
+    for idx, val in row_data:
+        h.update(np.ascontiguousarray(idx, dtype=np.int32).tobytes())
+        h.update(np.ascontiguousarray(val, dtype=np.float64).tobytes())
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return h.digest(), device
+
+
 def pad_standard_form_ell(
     row_data,
     rhs: np.ndarray,
@@ -147,19 +173,43 @@ def pad_standard_form_ell(
     conventions of pad_standard_form).  The dense [m_pad, n_pad] f64 matrix
     never exists: every product on the returned LP goes through the
     EllMatrix.  ``device`` defaults to ``cuda``.
+
+    The EllMatrix depends only on the rows and the padding, and the B&B
+    rebuilds the same one again and again: every refresh that only masks
+    columns (the mask lives in c, not A) and every core-search child.  So,
+    as in the JAX package, the operator is cached by an exact content key
+    (``_ell_key``), at most four of them, the oldest dropped first; b, c and
+    row_pad are built anew on every call.  A cached operator is shared by
+    every LP built from the same rows, so no consumer writes into its
+    tensors.  ``pad_standard_form_ell.builds`` and ``.hits`` count the
+    operators built and reused.
     """
     device = resolve_device(device)
     m = len(row_data)
     n = n_struct + m
     if m_pad < m or n_pad < n:
         raise ValueError(f"padded dims ({m_pad},{n_pad}) smaller than real ({m},{n})")
-    A = ell_from_rows(row_data, n_struct=n_struct, m_pad=m_pad, n_pad=n_pad, device=device)
+    key = _ell_key(row_data, n_struct, m_pad, n_pad, device)
+    with _ELL_CACHE_LOCK:
+        A = _ELL_DEVICE_CACHE.get(key)
+        if A is None:
+            A = ell_from_rows(row_data, n_struct=n_struct, m_pad=m_pad, n_pad=n_pad, device=device)
+            if len(_ELL_DEVICE_CACHE) >= 4:
+                _ELL_DEVICE_CACHE.pop(next(iter(_ELL_DEVICE_CACHE)))
+            _ELL_DEVICE_CACHE[key] = A
+            pad_standard_form_ell.builds += 1
+        else:
+            pad_standard_form_ell.hits += 1
     bp = np.zeros(m_pad, dtype=np.float64)
     bp[:m] = rhs
     cp = np.ones(n_pad, dtype=np.float64)
     cp[:n_struct] = costs
     cp[n_struct:n] = 0.0
     return _padded_lp(A, bp, cp, m, n, n_struct, device)
+
+
+pad_standard_form_ell.builds = 0
+pad_standard_form_ell.hits = 0
 
 
 def stack_lps(lps: Sequence[PaddedLp]) -> PaddedLp:
