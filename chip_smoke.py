@@ -9,12 +9,18 @@ checkout.  Phases, each printed as it runs:
   1. device: card name and power limit, precision flags, build of the Gram
      kernel from sypha_tpu_torch/csrc/gram.cu;
   2. kernel: the Gram kernel against its plain PyTorch version and an f64
-     Gram at seven shapes of its shared form (one A for every lane; one
-     shape with w over the IPM's full clamp range; the last three are the
-     column slabs of phase 8's tensor-parallel ranks and the whole
-     scpnrg-class matrix) and four of its per-lane form (a distinct A per
-     lane, one shape over the clamp range), per entry against |Aw| |Aw|^T,
-     for bit symmetry, with CUDA-event times;
+     Gram at eleven shapes of its shared form (one A for every lane; one
+     shape with w over the IPM's full clamp range; the column slabs of
+     phase 8's tensor-parallel ranks and the whole scpnrg-class matrix; one
+     and two lanes at slices A's and B's widths, where k is cut) and eight
+     of its per-lane form (a distinct A per lane, one shape over the clamp
+     range, one and two lanes), each on an A in {0, +-1} (the three-product
+     path) and on a general f32 A (the six-product path): per entry against
+     |Aw| |Aw|^T, for bit symmetry, a repeated call bit for bit, the
+     launches counted by form, path and split-k, with CUDA-event times of
+     the kernel, of its six-product path on the same A and of one pass
+     where k is cut, of the plain version, and of one cuBLAS matmul of a
+     precomputed Aw by its transpose;
   3. slice A: 128 lanes of a seeded scp4x-class LP (200 x 1000, 2%) through
      the reader, pad_lp, make_shared_batch and mehrotra_solve_shared, checked
      against HiGHS, then again with the plain Gram for comparison;
@@ -33,7 +39,8 @@ checkout.  Phases, each printed as it runs:
   7. interfaces, every run on the default device and counted: (a) the CLI
      in process on the scpnre-class LP against HiGHS, the single-LP latency
      of solve_lp (the per-lane engine on one lane) at scpnre and scp4x
-     class, K1 at one lane; (b) ``python3 -m
+     class, K1 at one lane (its time at several k slice counts, and the
+     host microseconds of a gram() call); (b) ``python3 -m
      sypha_tpu_torch`` as a subprocess on phase 6's MILP, with no --device;
      (c) the Solver on each route: the scp4x-class model as an LP and as a
      MILP, a general LP with every row type, maximisation and an offset
@@ -93,19 +100,22 @@ checkout.  Phases, each printed as it runs:
      a fresh build of its rows, then run (b) again with the cache emptied
      before every call, equal in status and objective, both walls printed.
 
+Every run that drives a path sets K1's counts to 0 just before and reads
+them just after, by path: the runs on SCP rows (A in {0, +-1}) launch only
+the three-product path, the B&B runs (integer cut rows) launch it, the
+general LP of phase 7 (c) launches only the six-product path, and the
+single LPs cut k while slices A and B and the grouped solve do not.
+
 Any failed check raises, and the script exits non-zero; without a CUDA card
 it exits non-zero before doing anything.  The last line is the JSON status
 object and the line before it the card's name and power limit; the line
-before that lists each kernel with its launch count in the slices (slice A
-as ``launches``, then slices B and C, the B&B, the API, the in-process
-CLI run, the lane-sharded legs, the tensor-parallel ranks, per tool
-phase 11 and, per leg, phase 12), its error
-against the plain version, its times against the plain version and the
-one-call library einsum, and its bound (the larger of the f32 SYRK's FLOPs
-over the f32 peak and its bytes over HBM bandwidth), at the batched shapes
-and at the slab shapes; then the same for the kernel's per-lane form, whose
-``launches`` are phase 9 (a)'s, and for its grouped form, whose
-``launches`` are phase 10 (b)'s.
+before that lists each kernel form (shared, per lane, grouped) with the
+launches of its main path (slice A, phase 9 (a), phase 10 (b)) by path,
+every run's launches by path (``paths``), its error against the plain
+version and the f64 Gram, and per phase-2 shape its times (kernel on its
+path, six-product path, one pass, plain, cuBLAS), its bound (the larger of
+the f32 SYRK's FLOPs over the f32 peak and its bytes over HBM bandwidth),
+its share of the bound and its bf16x6 and bf16x3 tensor-core floors.
 """
 
 from __future__ import annotations
@@ -129,8 +139,11 @@ def card_line() -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def time_ms(torch, fn, reps: int = 20) -> float:
-    """Median of ``reps`` CUDA-event-timed calls, after warm-up."""
+def time_ms(torch, fn, reps: int = 20, inner: int = 10) -> float:
+    """Per-call time: median over ``reps`` samples of ``inner`` back-to-back
+    calls between two CUDA events, after warm-up.  The host enqueues while
+    the card works, so a call whose device work is shorter than its host
+    work reads as its host time."""
     for _ in range(3):
         fn()
     times = []
@@ -138,11 +151,70 @@ def time_ms(torch, fn, reps: int = 20) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(inner):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
+
+
+def device_ms(torch, fn, calls: int = 5, reps: int = 20) -> float:
+    """Device time per call: ``calls`` calls captured in one CUDA graph
+    (after warm-up on a side stream), the graph's replay timed by CUDA
+    events, median of ``reps``.  No host work runs between the kernels, so
+    a call shorter than its host work reads as its device time."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    del graph
+    return statistics.median(times)
+
+
+def profiled(torch, fn):
+    """One run of ``fn`` under torch.profiler, after a short profiled
+    warm-up (the profiler's own start-up): (K1 device ms, K1 kernels run
+    (split-k's second pass counted apart), device ms of every kernel, wall
+    s).  The device times are None where the profiler records none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1_us = all_us = 0.0
+    k1_calls = 0
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = e.self_device_time_total
+        all_us += us
+        if "gram_kernel<" in e.key or "gram_reduce_kernel" in e.key:  # K1's two kernels
+            k1_us += us
+            k1_calls += e.count
+    if all_us == 0.0:
+        return None, 0, None, wall
+    return k1_us / 1e3, k1_calls, all_us / 1e3, wall
 
 
 def entry_rel_err(M, G64, bound) -> float:
@@ -151,6 +223,38 @@ def entry_rel_err(M, G64, bound) -> float:
     pos = bound > 0
     check(bool((err[~pos] == 0).all()), "gram entries with a zero bound are exact")
     return (err[pos] / bound[pos]).max().item()
+
+
+# K1's counters: all launches, per form, and per path (ops/gram.py)
+COUNTERS = ("launches", "launches_per_lane", "launches_grouped", "launches_bf16x3", "launches_split_k")
+# the counts of every run that drives a path, by label, for the kernels line
+PATHS = {}
+
+
+def reset_counts(gram_mod):
+    for name in COUNTERS:
+        setattr(gram_mod.gram, name, 0)
+
+
+def record_paths(gram_mod, label: str, *, bf16x3: str, split_k: bool | None = None):
+    """K1's launches by path since ``reset_counts``, kept under ``label``.
+    ``bf16x3``: "all" for a run on SCP rows (A in {0, +-1}), which must
+    launch only the three-product path; "some" for a B&B, whose cut rows
+    are integers and mostly exact in bf16; "none" for a general-coefficient
+    A, only the six-product path; None for a model whose rows the run
+    only prints.  ``split_k`` (when given): whether every
+    launch cut k or none did."""
+    g = gram_mod.gram
+    rec = {"launches": g.launches, "bf16x3": g.launches_bf16x3,
+           "bf16x6": g.launches - g.launches_bf16x3, "split_k": g.launches_split_k}
+    check(rec["launches"] > 0, f"{label}: K1 launched")
+    ok = {"all": rec["bf16x6"] == 0, "some": rec["bf16x3"] > 0, "none": rec["bf16x3"] == 0, None: True}[bf16x3]
+    check(ok, f"{label}: K1 launches {rec}, bf16x3 on {bf16x3} of them")
+    if split_k is not None:
+        want = rec["launches"] if split_k else 0
+        check(rec["split_k"] == want, f"{label}: {rec['split_k']} of {rec['launches']} K1 launches cut k, want {want}")
+    PATHS[label] = rec
+    print(f"[paths] {label}: K1 launches {rec['launches']}: bf16x3 {rec['bf16x3']}, bf16x6 {rec['bf16x6']}, split-k {rec['split_k']}")
 
 
 def highs_objective(model, fix0=None, fix1=None):
@@ -176,9 +280,11 @@ def highs_objective(model, fix0=None, fix1=None):
 
 # Phase 2's shapes: (B, m, n, label).  The shared form (one A [m, n] for
 # every lane) at slices A and B, a ragged shape, slice B's shape with w over
-# the IPM's whole clamp range, and phase 8's slabs; the per-lane form (a
-# distinct A [B, m, n] per lane) at a ragged shape, the clamp range, and
-# phase 9 (a)'s and slice B's classes.
+# the IPM's whole clamp range, phase 8's slabs, and one and two lanes at
+# slices A's and B's widths (split-k); the per-lane form (a distinct A
+# [B, m, n] per lane) at a ragged shape, the clamp range, phase 9 (a)'s and
+# slice B's classes, and one and two lanes.  Each shape runs on an A in
+# {0, +-1} (bf16x3) and on a general f32 A (bf16x6).
 SHARED_SHAPES = (
     (128, 200, 1280, "cell A"),
     (64, 504, 5504, "cell B"),
@@ -187,12 +293,20 @@ SHARED_SHAPES = (
     (2, 504, 2752, "slab scpnre"),
     (1, 1024, 5632, "slab scpnrg"),
     (1, 1024, 11264, "scpnrg"),
+    (1, 200, 1280, "B=1 scp4x"),
+    (2, 200, 1280, "B=2 scp4x"),
+    (1, 504, 5504, "B=1 scpnre"),
+    (2, 504, 5504, "B=2 scpnre"),
 )
 PER_LANE_SHAPES = (
     (3, 37, 301, "per-lane ragged"),
     (16, 504, 5504, "per-lane full range"),
     (128, 200, 1280, "per-lane cell A"),
     (64, 504, 5504, "per-lane cell B"),
+    (1, 200, 1280, "per-lane B=1 scp4x"),
+    (2, 200, 1280, "per-lane B=2 scp4x"),
+    (1, 504, 5504, "per-lane B=1 scpnre"),
+    (2, 504, 5504, "per-lane B=2 scpnre"),
 )
 # Phase 10's: the grouped form (one A per instance group of L lanes) at
 # bench.py's layout, 10 groups x 128 lanes of the scp4x class, and ragged;
@@ -208,9 +322,11 @@ def hold_against_plain(torch, gram_mod, A32, w, where: str):
     lanes of w [B, n], A [B, m, n] per lane, or A [G, m, n] per group of w
     [G, L, n]), against its plain version and an f64 Gram: max abs error
     within 1e-5 of max |M|, finite, M == M^T bit for bit, per-entry error at
-    most 4x plain's.  Returns (max abs error vs f64, vs plain, max |M|,
-    per-entry relative error of kernel and of plain)."""
+    most 4x plain's, and a second call equal bit for bit.  Returns (max abs
+    error vs f64, vs plain, max |M|, per-entry relative error of kernel and
+    of plain)."""
     M = gram_mod.gram(A32, w)
+    again = gram_mod.gram(A32, w)
     plain = gram_mod.gram_reference(A32, w)
     torch.cuda.synchronize()
     if w.ndim == 3:
@@ -227,64 +343,128 @@ def hold_against_plain(torch, gram_mod, A32, w, where: str):
     check(err_plain <= 1e-5 * scale, f"gram vs plain at {where}: {err_plain}")
     check(torch.isfinite(M).all().item(), f"gram output finite at {where}")
     check(torch.equal(M, M.mT), f"gram output symmetric bit for bit at {where}")
+    check(torch.equal(M, again), f"gram repeated call equal bit for bit at {where}")
     rel_k = entry_rel_err(M, G64, bound)
     rel_p = entry_rel_err(plain, G64, bound)
     check(rel_k <= 4 * rel_p, f"gram per-entry error at {where}: {rel_k} > 4 x plain {rel_p}")
     return err64, err_plain, scale, rel_k, rel_p
 
 
-def gram_times(torch, gram_mod, A32, w):
-    """(kernel ms, plain ms, library ms), each a median of 20 CUDA-event-timed calls."""
-    return (
-        time_ms(torch, lambda: gram_mod.gram(A32, w)),
-        time_ms(torch, lambda: gram_mod.gram_reference(A32, w)),
-        time_ms(torch, lambda: gram_library_call(torch, A32, w)),
-    )
+def gram_splits(torch, gram_mod, A32, w) -> int:
+    """The k slices gram() cuts for these operands on this card."""
+    sms = torch.cuda.get_device_properties(A32.device).multi_processor_count
+    return gram_mod._plan(w[..., 0].numel(), A32.shape[-2], A32.shape[-1], sms)
+
+
+def gram_times(torch, gram_mod, A32, w) -> dict:
+    """K1 and its yardsticks on one input pair, each a median of 20 samples
+    of CUDA-event-timed calls: ``ms`` on the path gram() takes (``path``,
+    ``splits``), ``plain_ms`` (gram_reference), ``library_ms`` (cuBLAS: one
+    torch.matmul of a precomputed Aw by its transpose at f32 "highest"); on
+    an A exact in bf16 also ``bf16x6_ms``, the six-product path on the same
+    A; where k is cut, ``one_pass_ms``, the same path in one slice.  Each
+    also as ``*device_ms``, its time per call replayed from a CUDA graph."""
+    exact = gram_mod.bf16_exact(A32)
+    splits = gram_splits(torch, gram_mod, A32, w)
+    Aw = A32[:, None] * w[..., None, :] if w.ndim == 3 else A32 * w[:, None, :]
+    calls = {
+        "": lambda: gram_mod.gram(A32, w, a_bf16_exact=exact),
+        "plain_": lambda: gram_mod.gram_reference(A32, w),
+        "library_": lambda: torch.matmul(Aw, Aw.mT),
+    }
+    if exact:
+        calls["bf16x6_"] = lambda: gram_mod.gram(A32, w, a_bf16_exact=False)
+    if splits > 1:
+        calls["one_pass_"] = lambda: gram_mod._launch(A32, w, exact, 1)
+    out = {"path": "bf16x3" if exact else "bf16x6", "splits": splits}
+    for key, fn in calls.items():
+        out[f"{key}ms"] = time_ms(torch, fn)
+        out[f"{key}device_ms"] = device_ms(torch, fn)
+    del Aw
+    return out
 
 
 def kernel_phase(torch, gram_mod, dev, card, shapes, form: str):
     """Phase 2 (and 10 (a)): the Gram kernel against its plain version and an
     f64 Gram, with one A shared by the lanes (``form`` "shared"), a distinct
     A per lane ("per_lane"), or one A per instance group ("grouped", B =
-    (G, L)).
+    (G, L)); each shape on an A in {0, +-1} (the three-product path) and on
+    a general f32 A, uniform in [-1, 1] (the six-product path), with the
+    launches checked by form, path and split-k.
 
-    Returns ({label: (kernel ms, plain ms, library ms)}, max abs error vs plain
-    outside the full-range shapes, max per-entry relative error of kernel and
-    plain).
-    """
+    Returns ({label: gram_times of the {0, +-1} A, with ``general_ms`` (and
+    ``general_one_pass_ms``) of the general A}, {max abs error vs plain
+    outside the full-range shapes, max per-entry relative error of bf16x3,
+    of bf16x6 and of plain})."""
     gen = torch.Generator(device=dev).manual_seed({"shared": 0, "per_lane": 1, "grouped": 2}[form])
-    kernel_err = entry_err = plain_entry_err = 0.0
+    errs = {"max_abs_err": 0.0, "bf16x3_entry": 0.0, "bf16x6_entry": 0.0, "plain_entry": 0.0}
     times = {}
     for B, m, n, label in shapes:
         if form == "grouped":
             a_shape, w_shape = (B[0], m, n), (*B, n)
         else:
             a_shape, w_shape = ((B, m, n) if form == "per_lane" else (m, n)), (B, n)
-        A32 = torch.randint(-1, 2, a_shape, generator=gen, device=dev).float()
         if "full range" in label:
             # w = sqrt(d2), d2 log-uniform over the IPM's clamp [1e-30, 1e30]
             log_d2 = torch.rand(w_shape, generator=gen, device=dev, dtype=torch.float64) * 60.0 - 30.0
             w = torch.sqrt(10.0**log_d2).float()
         else:
             w = 10.0 ** (torch.rand(w_shape, generator=gen, device=dev) * 9.0 - 6.0)
-        before = (gram_mod.gram.launches_per_lane, gram_mod.gram.launches_grouped)
-        err64, err_plain, scale, rel_k, rel_p = hold_against_plain(torch, gram_mod, A32, w, str((B, m, n)))
-        counted = (gram_mod.gram.launches_per_lane - before[0], gram_mod.gram.launches_grouped - before[1])
-        check(counted == (int(form == "per_lane"), int(form == "grouped")), f"per-form counts at {label}")
-        if "full range" not in label:  # there the absolute error scales with w^2 ~ 1e30
-            kernel_err = max(kernel_err, err_plain)
-        entry_err = max(entry_err, rel_k)
-        plain_entry_err = max(plain_entry_err, rel_p)
-        times[label] = ms, plain_ms, library_ms = gram_times(torch, gram_mod, A32, w)
-        del A32, w
-        print(
-            f"[kernel] gram B={B} m={m} n={n} ({label}): max_abs_err vs f64 {err64:.3e} "
-            f"(limit {1e-5 * scale:.3e}), vs plain {err_plain:.3e}; per-entry rel err "
-            f"{rel_k:.3e} vs plain {rel_p:.3e} (limit 4x); symmetric; "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library einsum {library_ms:.4f} ms "
-            f"(median of 20) on {card}"
-        )
-    return times, kernel_err, entry_err, plain_entry_err
+        for kind in ("bf16x3", "bf16x6"):
+            if kind == "bf16x3":
+                A32 = torch.randint(-1, 2, a_shape, generator=gen, device=dev).float()
+            else:
+                A32 = torch.rand(a_shape, generator=gen, device=dev) * 2.0 - 1.0
+            if gram_mod.bf16_exact(A32) != (kind == "bf16x3"):
+                rounded = A32.to(torch.bfloat16).to(A32.dtype)
+                check(False, (
+                    f"bf16 exactness of the {kind} A at {label}: {int((rounded != A32).sum())} entries "
+                    f"differ from their bf16 rounding; A in [{A32.min().item()}, {A32.max().item()}], "
+                    f"rounded in [{rounded.min().item()}, {rounded.max().item()}]"
+                ))
+            splits = gram_splits(torch, gram_mod, A32, w)
+            before = [getattr(gram_mod.gram, c) for c in COUNTERS]
+            err64, err_plain, scale, rel_k, rel_p = hold_against_plain(
+                torch, gram_mod, A32, w, f"{(B, m, n)} {kind}"
+            )
+            counted = [getattr(gram_mod.gram, c) - b for c, b in zip(COUNTERS, before)]
+            want = [2, 2 * (form == "per_lane"), 2 * (form == "grouped"), 2 * (kind == "bf16x3"), 2 * (splits > 1)]
+            check(counted == want, f"K1 counts at {label} {kind}: {counted}, want {want}")
+            if "full range" not in label:  # there the absolute error scales with w^2 ~ 1e30
+                errs["max_abs_err"] = max(errs["max_abs_err"], err_plain)
+            errs[f"{kind}_entry"] = max(errs[f"{kind}_entry"], rel_k)
+            errs["plain_entry"] = max(errs["plain_entry"], rel_p)
+            if kind == "bf16x3":
+                t = times[label] = gram_times(torch, gram_mod, A32, w)
+                timing = (
+                    f"bf16x3 {t['ms']:.4f} ms, bf16x6 on the same A {t['bf16x6_ms']:.4f} ms, plain "
+                    f"{t['plain_ms']:.4f} ms, cuBLAS matmul {t['library_ms']:.4f} ms; device time per "
+                    f"call (CUDA graph) {t['device_ms']:.4f} / {t['bf16x6_device_ms']:.4f} / "
+                    f"{t['plain_device_ms']:.4f} / {t['library_device_ms']:.4f} ms"
+                )
+            else:
+                t = times[label]
+
+                def general():
+                    return gram_mod.gram(A32, w, a_bf16_exact=False)
+
+                t["general_ms"] = time_ms(torch, general)
+                t["general_device_ms"] = device_ms(torch, general)
+                timing = f"bf16x6 {t['general_ms']:.4f} ms, device {t['general_device_ms']:.4f} ms"
+                if splits > 1:
+                    t["general_one_pass_ms"] = time_ms(torch, lambda: gram_mod._launch(A32, w, False, 1))
+            if splits > 1:
+                one = t["one_pass_ms"] if kind == "bf16x3" else t["general_one_pass_ms"]
+                timing += f"; split-k {splits} slices, one pass {one:.4f} ms"
+            del A32
+            print(
+                f"[kernel] gram B={B} m={m} n={n} ({label}, {form}, {kind} A): max_abs_err vs f64 "
+                f"{err64:.3e} (limit {1e-5 * scale:.3e}), vs plain {err_plain:.3e}; per-entry rel err "
+                f"{rel_k:.3e} vs plain {rel_p:.3e} (limit 4x); symmetric; repeat equal; {timing} "
+                f"(medians of 20) on {card}"
+            )
+        del w
+    return times, errs
 
 
 def seeded_fixings(rng, lanes, ncols, n_pad):
@@ -326,9 +506,10 @@ def slice_c_phase(torch, st, gram_mod, dev, card, model, highs_obj):
 
     solve(ell)  # warm-up of the ELL products
     torch.cuda.reset_peak_memory_stats()
-    gram_mod.gram.launches = 0
+    reset_counts(gram_mod)
     state, _ = solve(ell)
     launches = gram_mod.gram.launches
+    record_paths(gram_mod, "slice C (ELL)", bf16x3="all", split_k=False)
     status = state.status.cpu().numpy()
     obj = torch.sum(ell.c[:, :n_real] * state.x[:, :n_real], dim=-1).cpu().numpy()
     check(np.all(status == st.IpmStatus.CONVERGED), f"slice C statuses {np.unique(status)}")
@@ -473,7 +654,7 @@ def milp_phase(torch, st, gram_mod, card):
         cfg = st.SolverConfig(verbosity=3)
         cfg = cfg.replace(bnb=cfg.bnb.replace(hard_time_limit_sec=120.0, **extra))
         _NodeLpSolver.window_stats.clear()
-        gram_mod.gram.launches = 0
+        reset_counts(gram_mod)
         t0 = time.perf_counter()
         with EllOperatorLog() as ell_log:
             r = branch_and_bound(model, cfg)
@@ -481,6 +662,7 @@ def milp_phase(torch, st, gram_mod, card):
         wall = time.perf_counter() - t0
         ell_runs[name] = (ell_log, r, wall)
         k1 = gram_mod.gram.launches
+        record_paths(gram_mod, f"phase 6 B&B ({name})", bf16x3="some")
         windows = dict(_NodeLpSolver.window_stats)
         launches += k1
         print(
@@ -602,12 +784,14 @@ def checkpoint_phase(torch, st, gram_mod, card, seed: int, opt: float):
         cfg = st.SolverConfig(verbosity=3)
         cfg = cfg.replace(bnb=cfg.bnb.replace(**{**base, **extra}))
         _NodeLpSolver.window_stats.clear()
-        gram_mod.gram.launches = 0
+        reset_counts(gram_mod)
         t0 = time.perf_counter()
         r = branch_and_bound(model, cfg)
         torch.cuda.synchronize()
         walls[leg] = time.perf_counter() - t0
         launches[leg] = gram_mod.gram.launches
+        # cuts off: every row an SCP row
+        record_paths(gram_mod, f"phase 12 (a) {leg}", bf16x3="all")
         windows = dict(_NodeLpSolver.window_stats)
         out[leg] = r
         print(
@@ -672,13 +856,14 @@ def cache_phase(torch, st, gram_mod, card, seed: int, opt: float, ell_runs):
         hard_time_limit_sec=120.0, exact_closure=False, cuts_enabled=False, max_nodes=192,
     ))
     _NodeLpSolver.window_stats.clear()
-    gram_mod.gram.launches = 0
+    reset_counts(gram_mod)
     t0 = time.perf_counter()
     with EllOperatorLog(clear_cache=True) as cleared:
         r = branch_and_bound(model, cfg)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     k1 = gram_mod.gram.launches
+    record_paths(gram_mod, "phase 12 (b) cache emptied", bf16x3="all")
     print(
         f"[cache] run (b) with the cache emptied before each call: {r.status.name} objective "
         f"{r.objective:.6f} nodes {r.nodes_processed} builds {cleared.builds} hits {cleared.hits} "
@@ -703,26 +888,14 @@ def gram_bound(B: int, m: int, n: int, matrices: int = 1):
     """Least time of one Gram call on the card: the lower-triangle SYRK's
     f32 FLOPs (2 B m(m+1)/2 n) over the f32 peak, against A (``matrices``
     of [m, n]: 1 shared, B per lane, G grouped), w read once and M written
-    once over HBM bandwidth.  Returns (ms, bound_by, bf16x6 ms): the last is
-    the kernel's own work, six bf16 products, over the bf16 peak."""
+    once over HBM bandwidth.  Returns (ms, bound_by, bf16x6 ms, bf16x3 ms):
+    the last two are the kernel's own tensor-core work, six or three bf16
+    products, over the bf16 peak."""
     flops = 2.0 * B * (m * (m + 1) / 2) * n
     bytes_ = 4.0 * (matrices * m * n + B * n + B * m * m)
     ops_ms, bytes_ms = flops / F32_FLOPS * 1e3, bytes_ / HBM_BYTES * 1e3
     bound_by = "operations" if ops_ms >= bytes_ms else "bytes"
-    return max(ops_ms, bytes_ms), bound_by, 6.0 * flops / BF16_FLOPS * 1e3
-
-
-def gram_library_call(torch, A32, w):
-    """One PyTorch call computing the Gram function on the same inputs.  For
-    a per-lane or grouped A the einsum contracts left to right: the path
-    opt_einsum picks materialises [B, m, m, n] (83 GiB at (16, 504, 5504))."""
-    if w.ndim == 3:
-        with torch.backends.opt_einsum.flags(enabled=False):
-            return torch.einsum("gik,glk,glk,gjk->glij", A32, w, w, A32)
-    if A32.ndim == 3:
-        with torch.backends.opt_einsum.flags(enabled=False):
-            return torch.einsum("bik,bk,bk,bjk->bij", A32, w, w, A32)
-    return torch.einsum("ik,bk,bk,jk->bij", A32, w, w, A32)
+    return max(ops_ms, bytes_ms), bound_by, 6.0 * flops / BF16_FLOPS * 1e3, 3.0 * flops / BF16_FLOPS * 1e3
 
 
 def cli_lines(out: str) -> dict:
@@ -735,15 +908,16 @@ def cli_lines(out: str) -> dict:
 
 
 # Loaded by the CLI subprocess of phase 7 through PYTHONPATH: it reports the
-# process's K1 launches at exit, then runs the interpreter's own
-# sitecustomize, if there is one.
+# process's K1 launches at exit (all, grouped, bf16x3), then runs the
+# interpreter's own sitecustomize, if there is one.
 LAUNCH_HOOK = '''
 import atexit, importlib.machinery, importlib.util, os, sys
 
 def _report():
     gram = sys.modules.get("sypha_tpu_torch.ops.gram")
-    counts = (gram.gram.launches, gram.gram.launches_grouped) if gram else (0, 0)
-    print("GRAM_LAUNCHES %d %d" % counts, file=sys.stderr)
+    names = ("launches", "launches_grouped", "launches_bf16x3")
+    counts = tuple(getattr(gram.gram, n) for n in names) if gram else (0, 0, 0)
+    print("GRAM_LAUNCHES %d %d %d" % counts, file=sys.stderr)
 
 atexit.register(_report)
 _here = os.path.dirname(os.path.abspath(__file__))
@@ -888,11 +1062,15 @@ def interfaces_phase(torch, st, gram_mod, dev, card, model_a, highs_a, model_b, 
     of solve_lp at scpnre and scp4x class; (b) the CLI as a subprocess on
     the MILP with no --device; (c) the Solver, one route per run; (d)
     solve_lp_batch over four instances in one bucket, cold and warm.
+    Every run's K1 launches are read by path: the SCP runs on bf16x3 only,
+    the general LP (coefficients uniform in [-1, 1]) on bf16x6 only, the
+    single LPs with k cut.  Then K1 at one lane: the host microseconds of a
+    gram() call, and its time at several k slice counts.
     Returns (K1 launches of the Solver and solve_lp_batch runs, K1 launches
     of the in-process CLI run, {label: (latency s, solve s, launches,
-    shared-engine solve s)}, {shape: (kernel ms, plain ms, library ms)} at
-    B = 1, and how many of the Solver/solve_lp_batch and of the CLI launches
-    were of the per-lane form)."""
+    shared-engine solve s)}, {shape: gram_times} at B = 1, and how many of
+    the Solver/solve_lp_batch and of the CLI launches were of the per-lane
+    form)."""
     import atexit
     import contextlib
     import io
@@ -908,9 +1086,8 @@ def interfaces_phase(torch, st, gram_mod, dev, card, model_a, highs_a, model_b, 
 
     per_lane = {}  # label -> launches of the per-lane form in that run
 
-    def counted(label, fn):
-        gram_mod.gram.launches = 0
-        gram_mod.gram.launches_per_lane = 0
+    def counted(label, fn, bf16x3="all", split_k=None):
+        reset_counts(gram_mod)
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
@@ -918,6 +1095,7 @@ def interfaces_phase(torch, st, gram_mod, dev, card, model_a, highs_a, model_b, 
         launches = gram_mod.gram.launches
         per_lane[label] = gram_mod.gram.launches_per_lane
         check(launches > 0, f"{label}: gram launched")
+        record_paths(gram_mod, f"phase 7 {label}", bf16x3=bf16x3, split_k=split_k)
         return out, wall, launches
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
@@ -931,7 +1109,8 @@ def interfaces_phase(torch, st, gram_mod, dev, card, model_a, highs_a, model_b, 
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         rc, wall, launches_cli = counted(
-            "cli LP", lambda: cli.main(["--input-file", path_b, "--disable-bnb", "--verbosity", "1"])
+            "cli LP", lambda: cli.main(["--input-file", path_b, "--disable-bnb", "--verbosity", "1"]),
+            split_k=True,
         )
     out = cli_lines(buf.getvalue())
     check(rc == 0, f"cli LP return code {rc}")
@@ -947,7 +1126,7 @@ def interfaces_phase(torch, st, gram_mod, dev, card, model_a, highs_a, model_b, 
     latency = {}
     for label, model, ref in (("scpnre class", model_b, highs_b), ("scp4x class", model_a, highs_a)):
         lp = st.pad_lp(model, device=dev)
-        res, _, launches = counted(f"solve_lp at {label}", lambda: st.solve_lp(lp))
+        res, _, launches = counted(f"solve_lp at {label}", lambda: st.solve_lp(lp), split_k=True)
         check(res.converged, f"solve_lp at {label}: {res.status.name}")
         rel = abs(res.primal_objective - ref) / abs(ref)
         check(rel <= 1e-6, f"solve_lp at {label}: {res.primal_objective} vs HiGHS {ref}")
@@ -980,20 +1159,44 @@ def interfaces_phase(torch, st, gram_mod, dev, card, model_a, highs_a, model_b, 
         )
     k1_b1 = {}
     gen = torch.Generator(device=dev).manual_seed(1)
-    for m, n in ((200, 1280), (504, 5504)):
+    for m, n in ((200, 1280), (504, 5504), (1024, 11264)):
         A32 = torch.randint(-1, 2, (m, n), generator=gen, device=dev).float()
         w = 10.0 ** (torch.rand((1, n), generator=gen, device=dev) * 9.0 - 6.0)
         M = gram_mod.gram(A32, w)
         err = (M - gram_mod.gram_reference(A32, w)).abs().max().item()
         scale = gram_mod.gram_reference(A32, w).abs().max().item()
         check(err <= 1e-5 * scale, f"gram at B=1 ({m}, {n}): {err}")
-        k1_b1[(1, m, n)] = gram_times(torch, gram_mod, A32, w)
-        bound, by, bf16 = gram_bound(1, m, n)
+        t = k1_b1[(1, m, n)] = gram_times(torch, gram_mod, A32, w)
+        bound, by, _, floor3 = gram_bound(1, m, n)
+        # the host's share of a call: enqueue only (the exactness passed in,
+        # as the IPMs pass it), then with the check gram() makes without it
+        reps = 200
+        for key, exact in (("host_us", True), ("host_us_checked", None)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                gram_mod.gram(A32, w, a_bf16_exact=exact)
+            t[key] = (time.perf_counter() - t0) / reps * 1e6
+            torch.cuda.synchronize()
+        sweep = {
+            s_: device_ms(torch, lambda: gram_mod._launch(A32, w, True, s_))
+            for s_ in sorted({1, 2, 4, 8, 16, 32, t["splits"]}) if s_ <= -(-n // 16)
+        }
+        t["sweep"] = sweep
         print(
-            f"[interfaces] gram B=1 m={m} n={n}: kernel {k1_b1[(1, m, n)][0]:.4f} ms, plain "
-            f"{k1_b1[(1, m, n)][1]:.4f} ms, library einsum {k1_b1[(1, m, n)][2]:.4f} ms (medians "
-            f"of 20); bound {bound:.4f} ms ({by}; bf16x6 work {bf16:.4f} ms); max_abs_err vs "
-            f"plain {err:.3e} on {card}"
+            f"[interfaces] gram B=1 m={m} n={n}: bf16x3 split-k ({t['splits']} slices) "
+            f"{t['ms']:.4f} ms, one pass {t['one_pass_ms']:.4f} ms, bf16x6 {t['bf16x6_ms']:.4f} ms, "
+            f"plain {t['plain_ms']:.4f} ms, cuBLAS matmul {t['library_ms']:.4f} ms (medians of 20); "
+            f"device time per call (CUDA graph) {t['device_ms']:.4f} / {t['one_pass_device_ms']:.4f} / "
+            f"{t['bf16x6_device_ms']:.4f} / {t['plain_device_ms']:.4f} / "
+            f"{t['library_device_ms']:.4f} ms; bound {bound:.4f} ms ({by}; bf16x3 floor "
+            f"{floor3:.4f} ms); max_abs_err vs plain {err:.3e}; device ms by k slices "
+            f"{json.dumps({k: round(v, 4) for k, v in sweep.items()})} on {card}"
+        )
+        print(
+            f"[interfaces] host us per gram() call at B=1 m={m} n={n}: {t['host_us']:.1f} with "
+            f"a_bf16_exact given, {t['host_us_checked']:.1f} with the check in gram() (means of {reps} "
+            f"enqueues) on {card}"
         )
 
     # (b) the CLI as a subprocess on the MILP, with the default device
@@ -1028,22 +1231,23 @@ def interfaces_phase(torch, st, gram_mod, dev, card, model_a, highs_a, model_b, 
     check(abs(float(milp_model.costs @ x) - primal) <= 1e-6, "cli MILP cover cost = PRIMAL")
     hook = [l for l in proc.stderr.splitlines() if l.startswith("GRAM_LAUNCHES ")]
     check(len(hook) == 1, "cli MILP subprocess reported its gram launches")
-    sub_launches = int(hook[0].split()[1])
+    sub_launches, _, sub_bf16x3 = (int(v) for v in hook[0].split()[1:])
     check(sub_launches > 0, "cli MILP subprocess: gram launched")
+    check(sub_bf16x3 > 0, f"cli MILP subprocess: bf16x3 launched ({sub_bf16x3} of {sub_launches})")
     print(
         f"[interfaces] (b) python3 -m sypha_tpu_torch (default device) on the MILP: rc 0, PRIMAL "
         f"{primal} = scipy {milp_opt}, cover of {len(cols)} columns, ITERATIONS "
         f"{out['ITERATIONS']}, TIME SOLVER {out['TIME SOLVER']} ms, TIME COMPILE "
         f"{out['TIME COMPILE']} ms, process wall {wall:.3f} s, gram.launches={sub_launches} "
-        f"on {card}"
+        f"(bf16x3 {sub_bf16x3}) on {card}"
     )
 
     # (c) the Solver, one route per run
     launches_api = 0
 
-    def solve(label, s):
+    def solve(label, s, bf16x3):
         nonlocal launches_api
-        status, wall, launches = counted(label, s.Solve)
+        status, wall, launches = counted(label, s.Solve, bf16x3)
         launches_api += launches
         print(
             f"[interfaces] (c) Solver {label}: {status.name} objective {s.objective_value():.10f} "
@@ -1054,14 +1258,15 @@ def interfaces_phase(torch, st, gram_mod, dev, card, model_a, highs_a, model_b, 
         return status
 
     s = scp_solver(Solver, dev, model_a, disable_bnb=True)
-    check(solve("LP route, scp4x class", s) == ResultStatus.OPTIMAL, "Solver LP route OPTIMAL")
+    check(solve("LP route, scp4x class", s, "all") == ResultStatus.OPTIMAL, "Solver LP route OPTIMAL")
     rel = abs(s.objective_value() - highs_a) / abs(highs_a)
     check(rel <= 1e-6, f"Solver LP route {s.objective_value()} vs HiGHS {highs_a}")
     s = scp_solver(Solver, dev, milp_model, disable_bnb=False)
-    check(solve("SCP MILP route, scp4x class", s) == ResultStatus.OPTIMAL, "Solver SCP MILP OPTIMAL")
+    check(solve("SCP MILP route, scp4x class", s, "some") == ResultStatus.OPTIMAL, "Solver SCP MILP OPTIMAL")
     check(abs(s.objective_value() - milp_opt) <= 1e-6, f"Solver SCP MILP {s.objective_value()} vs {milp_opt}")
     s, ref, duals = general_lp(Solver, dev)
-    check(solve("LP route, general rows, maximize + offset", s) == ResultStatus.OPTIMAL, "general LP OPTIMAL")
+    # a general-coefficient A: the six-product path only
+    check(solve("LP route, general rows, maximize + offset", s, "none") == ResultStatus.OPTIMAL, "general LP OPTIMAL")
     rel = abs(s.objective_value() - ref) / abs(ref)
     check(rel <= 1e-6, f"general LP objective {s.objective_value()} vs HiGHS {ref}: rel {rel}")
     got = np.array([c.dual_value() for c in s._constraints])
@@ -1071,7 +1276,7 @@ def interfaces_phase(torch, st, gram_mod, dev, card, model_a, highs_a, model_b, 
     for label, build in (("generic binary route, knapsack", knapsack),
                          ("binarized route, bounded integers", bounded_integers)):
         s, ref = build(Solver, dev)
-        check(solve(label, s) == ResultStatus.OPTIMAL, f"Solver {label} OPTIMAL")
+        check(solve(label, s, None) == ResultStatus.OPTIMAL, f"Solver {label} OPTIMAL")
         check(abs(s.objective_value() - ref) <= 1e-6, f"Solver {label}: {s.objective_value()} vs scipy {ref}")
 
     # (d) solve_lp_batch: four instances, 16 lanes each, in one bucket
@@ -1090,11 +1295,14 @@ def interfaces_phase(torch, st, gram_mod, dev, card, model_a, highs_a, model_b, 
 
     driver.mehrotra_solve = counted_engine
     try:
-        cold, wall, launches = counted("solve_lp_batch", lambda: st.solve_lp_batch(stacked, as_results=False))
+        cold, wall, launches = counted(
+            "solve_lp_batch", lambda: st.solve_lp_batch(stacked, as_results=False), split_k=False
+        )
         results = st.solve_lp_batch(stacked)
         x0, s0 = cold.x + 0.1, cold.s + 0.1
         warm, warm_wall, warm_launches = counted(
-            "solve_lp_batch warm", lambda: st.solve_lp_batch(stacked, warm_start=(x0, cold.y, s0))
+            "solve_lp_batch warm", lambda: st.solve_lp_batch(stacked, warm_start=(x0, cold.y, s0)),
+            split_k=False,
         )
     finally:
         driver.mehrotra_solve = engine
@@ -1180,7 +1388,7 @@ def rank_legs():
     out = {"tp": []}
     for label, model, batch in tp_lps(st, dev):
         n_real = model.ncols + model.nrows
-        gram_mod.gram.launches = 0
+        reset_counts(gram_mod)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         s = solve_shared_batch_tensor_parallel(batch, st.IpmOptions())
@@ -1190,6 +1398,8 @@ def rank_legs():
             "label": label,
             "wall": wall,
             "launches": gram_mod.gram.launches,
+            "bf16x3": gram_mod.gram.launches_bf16x3,
+            "split_k": gram_mod.gram.launches_split_k,
             "status": s.status.cpu().tolist(),
             "iterations": s.iterations.cpu().tolist(),
             "gap": s.gap.cpu().tolist(),
@@ -1262,9 +1472,9 @@ def multi_device_phase(torch, st, gram_mod, shared, spd, card, batch_a, highs_a,
     per_thread = collections.Counter()
     real_gram = shared.gram
 
-    def counting_gram(A32, w):
+    def counting_gram(A32, w, **kw):
         per_thread[threading.get_ident()] += 1
-        return real_gram(A32, w)
+        return real_gram(A32, w, **kw)
 
     gram_mod.gram.launches = 0
     shared.gram = counting_gram
@@ -1337,10 +1547,10 @@ def multi_device_phase(torch, st, gram_mod, shared, spd, card, batch_a, highs_a,
     per_thread_lanes = collections.Counter()
     real_spd_gram = spd.gram
 
-    def counting_lane_gram(A32, w):
+    def counting_lane_gram(A32, w, **kw):
         if A32.ndim == 3:
             per_thread_lanes[threading.get_ident()] += 1
-        return real_spd_gram(A32, w)
+        return real_spd_gram(A32, w, **kw)
 
     whole = st.solve_lp_batch(lp8, as_results=False)  # unsharded, and warm
     torch.cuda.synchronize()
@@ -1441,6 +1651,7 @@ def multi_device_phase(torch, st, gram_mod, shared, spd, card, batch_a, highs_a,
             check(rel_ref <= 1e-8, f"TP {label} rank {rk} vs unsharded: rel {rel_ref}")
             check(rel_highs <= 1e-6, f"TP {label} rank {rk} vs HiGHS: rel {rel_highs}")
             check(leg["launches"] > 0, f"TP {label}: gram launched on rank {rk}")
+            check(leg["bf16x3"] == leg["launches"], f"TP {label} rank {rk}: SCP slab on bf16x3 only, {leg}")
             launches_tp += leg["launches"]
         check(legs[0]["pobj"] == legs[1]["pobj"], f"TP {label}: the ranks gather the same x")
         walls[f"TP {label}"] = legs[0]["wall"]
@@ -1450,7 +1661,8 @@ def multi_device_phase(torch, st, gram_mod, shared, spd, card, batch_a, highs_a,
             f"objective {legs[0]['pobj'][0]:.10f} vs unsharded {ref_obj[0]:.10f} (rel "
             f"{abs(legs[0]['pobj'][0] - ref_obj[0]) / abs(ref_obj[0]):.2e}) vs HiGHS {highs:.10f}; "
             f"y equal on both ranks: {bool(np.array_equal(legs[0]['y'], legs[1]['y']))}; "
-            f"gram.launches {[leg['launches'] for leg in legs]}; TP wall "
+            f"gram.launches {[leg['launches'] for leg in legs]} (bf16x3 {[leg['bf16x3'] for leg in legs]}, "
+            f"split-k {[leg['split_k'] for leg in legs]}); TP wall "
             f"{[round(leg['wall'], 4) for leg in legs]} s, unsharded {ref_s:.4f} s on {card}"
         )
     for rk, leg in enumerate(rk["bnb"] for rk in ranks):
@@ -1484,13 +1696,13 @@ def per_lane_phase(torch, st, gram_mod, spd, card, models_a, lp_a32):
 
     def run(label, lp, opts, min_launches=None):
         torch.cuda.synchronize()
-        gram_mod.gram.launches = 0
-        gram_mod.gram.launches_per_lane = 0
+        reset_counts(gram_mod)
         t0 = time.perf_counter()
         res = st.solve_lp_batch(lp, opts)
         walls[label] = time.perf_counter() - t0
         iters[label] = [r.iterations for r in res]
         launches = gram_mod.gram.launches_per_lane
+        record_paths(gram_mod, f"phase 9 {label}", bf16x3="all")
         check(launches > 0 and launches == gram_mod.gram.launches, f"phase 9 {label}: per-lane K1 launches {launches}")
         need = max(iters[label]) + 1 if min_launches is None else min_launches
         check(launches >= need, f"phase 9 {label}: {launches} per-lane K1 launches < {need}")
@@ -1567,8 +1779,8 @@ def grouped_phase(torch, st, shared, gram_mod, dev, card):
     HiGHS; (c) the same solve with the plain Gram, and each group alone on
     the ungrouped engine in turn; (d) ``python3 -m sypha_tpu_torch.bench``
     as users run it, its JSON line parsed.  Returns (grouped K1 launches of
-    (b), kernel times, max abs error, per-entry errors of kernel and plain,
-    {label: wall s})."""
+    (b), kernel times and errors as kernel_phase returns them, {label: wall
+    s})."""
     import atexit
     import os
     import shutil
@@ -1576,9 +1788,7 @@ def grouped_phase(torch, st, shared, gram_mod, dev, card):
 
     import numpy as np
 
-    times, kernel_err, entry_err, plain_entry_err = kernel_phase(
-        torch, gram_mod, dev, card, GROUPED_SHAPES, form="grouped"
-    )
+    times, errs = kernel_phase(torch, gram_mod, dev, card, GROUPED_SHAPES, form="grouped")
 
     # (b) bench.py's layout: one bucket, 10 groups x 128 lanes
     models = [st.parse_scp_text(synthetic_scp_text(seed), name=f"syn_scp4x_{seed}") for seed in range(10)]
@@ -1599,14 +1809,13 @@ def grouped_phase(torch, st, shared, gram_mod, dev, card):
 
     st.mehrotra_solve_shared(grouped, opts)  # warm-up at this shape
     torch.cuda.synchronize()
-    gram_mod.gram.launches = 0
-    gram_mod.gram.launches_per_lane = 0
-    gram_mod.gram.launches_grouped = 0
+    reset_counts(gram_mod)
     t0 = time.perf_counter()
     state = st.mehrotra_solve_shared(grouped, opts)
     torch.cuda.synchronize()
     walls["grouped"] = time.perf_counter() - t0
     launches = gram_mod.gram.launches_grouped
+    record_paths(gram_mod, "phase 10 (b) grouped", bf16x3="all", split_k=False)
     check(gram_mod.gram.launches == launches, f"every K1 launch grouped: {gram_mod.gram.launches} vs {launches}")
     status = state.status.cpu().numpy()
     iters = state.iterations.cpu().numpy()
@@ -1689,6 +1898,7 @@ def grouped_phase(torch, st, shared, gram_mod, dev, card):
     bench_launches = [int(v) for v in hook[0].split()[1:]]
     # the grouped solves launch the grouped form, the single-LP ones the shared
     check(0 < bench_launches[1] < bench_launches[0], f"bench subprocess gram launches {bench_launches}")
+    check(bench_launches[2] == bench_launches[0], f"bench subprocess: SCP rows on bf16x3 only, {bench_launches}")
     same = hist == {int(k): int(v) for k, v in zip(*np.unique(iters, return_counts=True))}
     print(
         f"[grouped] (d) python3 -m sypha_tpu_torch.bench: rc 0, value {res['value']} {res['unit']}, "
@@ -1696,11 +1906,11 @@ def grouped_phase(torch, st, shared, gram_mod, dev, card):
         f"{res['single_lp_latency_min_s']}), achieved {res['achieved_tflops']} TFLOP/s, "
         f"ipm_iters_total {res['ipm_iters_total']}, {res['lanes_converged']}/{res['lanes']} converged, "
         f"iterations histogram {res['iterations_histogram']} ({'equal to' if same else 'differs from'} (b)'s), "
-        f"gram launches {bench_launches[0]} ({bench_launches[1]} grouped), process wall "
+        f"gram launches {bench_launches[0]} ({bench_launches[1]} grouped, {bench_launches[2]} bf16x3), process wall "
         f"{walls['bench process']:.3f} s, device {res['device']!r}"
     )
     print(f"[grouped] (d) bench line: {proc.stdout.strip().splitlines()[-1]}")
-    return launches, times, kernel_err, entry_err, plain_entry_err, walls
+    return launches, times, errs, walls
 
 
 def tools_phase(torch, gram_mod, shared, spd, card):
@@ -1765,8 +1975,8 @@ def tools_phase(torch, gram_mod, shared, spd, card):
             _, A32, w = max(pairs, key=lambda p: p[2][..., 0].numel() * p[1].shape[-2] ** 2 * p[1].shape[-1])
             B, m, n = w[..., 0].numel(), A32.shape[-2], A32.shape[-1]
             rec["shape"] = [B, m, n]
-            rec["ms"], rec["plain_ms"], rec["library_ms"] = gram_times(torch, gram_mod, A32, w)
-            rec["bound_ms"], rec["bound_by"], _ = gram_bound(
+            rec.update(gram_times(torch, gram_mod, A32, w))
+            rec["bound_ms"], rec["bound_by"], _, rec["bf16x3_floor_ms"] = gram_bound(
                 B, m, n, matrices=1 if A32.ndim == 2 else A32.shape[0]
             )
             held[(label, form)] = rec
@@ -1775,9 +1985,10 @@ def tools_phase(torch, gram_mod, shared, spd, card):
                 f"inputs of each of its {rec['shapes']} shapes: max rel err vs plain "
                 f"{rec['max_rel_err']:.3e} (limit 1e-5), per-entry rel err {rec['max_entry_rel_err']:.3e} "
                 f"vs plain {rec['plain_max_entry_rel_err']:.3e} (limit 4x), symmetric; at its largest, "
-                f"B={B} m={m} n={n}: kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
-                f"library einsum {rec['library_ms']:.4f} ms (medians of 20), bound "
-                f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}) on {card}"
+                f"B={B} m={m} n={n}: kernel ({rec['path']}, {rec['splits']} k slices) {rec['ms']:.4f} ms"
+                + (f", bf16x6 {rec['bf16x6_ms']:.4f} ms" if "bf16x6_ms" in rec else "")
+                + f", plain {rec['plain_ms']:.4f} ms, cuBLAS matmul {rec['library_ms']:.4f} ms (medians "
+                f"of 20), bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}) on {card}"
             )
 
     def run(label, tool, argv):
@@ -1785,15 +1996,14 @@ def tools_phase(torch, gram_mod, shared, spd, card):
         calls = [0]
 
         def recording(real):
-            def gram(A32, w):
+            def gram(A32, w, **kw):
                 calls[0] += 1
                 form = "grouped" if w.ndim == 3 else "per_lane" if A32.ndim == 3 else "shared"
                 seen[(form, tuple(A32.shape), tuple(w.shape))] = (A32, w.clone())
-                return real(A32, w)
+                return real(A32, w, **kw)
             return gram
 
-        gram_mod.gram.launches = 0
-        gram_mod.gram.launches_per_lane = 0
+        reset_counts(gram_mod)
         buf = io.StringIO()
         shared.gram, spd.gram = recording(gram_mod.gram), recording(gram_mod.gram)
         try:
@@ -1805,6 +2015,8 @@ def tools_phase(torch, gram_mod, shared, spd, card):
         finally:
             shared.gram = spd.gram = gram_mod.gram
         launches[label] = (gram_mod.gram.launches, gram_mod.gram.launches_per_lane)
+        # the tools' MILP and cut rounds append integer cut rows
+        record_paths(gram_mod, f"phase 11 {label}", bf16x3="some" if "milp" in label or "cut" in label else "all")
         out = buf.getvalue()
         print("".join(f"[tools] {label} | {line}\n" for line in out.splitlines()), end="")
         check(rc == 0, f"phase 11 {label}: rc {rc}")
@@ -1944,12 +2156,14 @@ def main() -> int:
     )
 
     # -- phase 2: the kernel against its plain version ---------------------
-    times, kernel_err, entry_err, plain_entry_err = kernel_phase(
-        torch, gram_mod, dev, card, SHARED_SHAPES, form="shared"
-    )
-    times_pl, kernel_err_pl, entry_err_pl, plain_entry_err_pl = kernel_phase(
-        torch, gram_mod, dev, card, PER_LANE_SHAPES, form="per_lane"
-    )
+    # the card to its clocks before the first timing: about a second of GEMMs
+    x = torch.randn(8192, 8192, device=dev)
+    for _ in range(50):
+        x @ x
+    torch.cuda.synchronize()
+    del x
+    times, errs = kernel_phase(torch, gram_mod, dev, card, SHARED_SHAPES, form="shared")
+    times_pl, errs_pl = kernel_phase(torch, gram_mod, dev, card, PER_LANE_SHAPES, form="per_lane")
 
     # -- phase 3: slice A, batched LP relaxations --------------------------
     timers.start("slice_a_setup")
@@ -1963,7 +2177,7 @@ def main() -> int:
     st.mehrotra_solve_shared(batch_a, opts)  # warm-up: library handles, caches
     torch.cuda.synchronize()
 
-    gram_mod.gram.launches = 0
+    reset_counts(gram_mod)
     pcg_solve.steps = 0
     timers.start("slice_a_solve")
     t0 = time.perf_counter()
@@ -1973,6 +2187,7 @@ def main() -> int:
     timers.stop("slice_a_solve")
     launches_a = gram_mod.gram.launches
     cg_steps_a = pcg_solve.steps
+    record_paths(gram_mod, "slice A", bf16x3="all", split_k=False)
 
     status_a = state_a.status.cpu().numpy()
     iters_a = state_a.iterations.cpu().numpy()
@@ -2013,6 +2228,7 @@ def main() -> int:
         f"{int(iters_a.max())}, objectives max rel diff {rel:.2e}, "
         f"solve {plain_s:.4f} s vs kernel {solve_s:.4f} s on {card}"
     )
+    k1_dev = {"slice A": profiled(torch, lambda: st.mehrotra_solve_shared(batch_a, opts))}
 
     # -- phase 4: slice B, a B&B node window -------------------------------
     timers.start("slice_b_setup")
@@ -2028,7 +2244,7 @@ def main() -> int:
     )
 
     torch.cuda.reset_peak_memory_stats()
-    gram_mod.gram.launches = 0
+    reset_counts(gram_mod)
     pcg_solve.steps = 0
     timers.start("slice_b_solve")
     t0 = time.perf_counter()
@@ -2038,6 +2254,7 @@ def main() -> int:
     timers.stop("slice_b_solve")
     launches_b = gram_mod.gram.launches
     cg_steps_b = pcg_solve.steps
+    record_paths(gram_mod, "slice B", bf16x3="all", split_k=False)
     peak = torch.cuda.max_memory_allocated()
 
     status_b = state_b.status.cpu().numpy()
@@ -2088,6 +2305,18 @@ def main() -> int:
         f"[slice B] plain Gram: iterations {int(plain_b[0].iterations.max())} vs kernel "
         f"{int(iters_b.max())}, converged objectives max rel diff {rel:.2e}"
     )
+    k1_dev["slice B"] = profiled(torch, lambda: st.solve_node_batch(lp_b, fix0, fix1, node_opts))
+    for label, launches in (("slice A", launches_a), ("slice B", launches_b)):
+        k1_ms, k1_calls, all_ms, wall = k1_dev[label]
+        if k1_ms is None:
+            print(f"[{label}] profiled run: the profiler recorded no device time; K1 device time not measured")
+            continue
+        print(
+            f"[{label}] profiled run: K1 device time {k1_ms:.4f} ms in {k1_calls} kernels "
+            f"({'all' if k1_calls == launches else 'an incomplete profile: not all'} of the "
+            f"{launches} launched in the counted run), all kernels {all_ms:.4f} ms, wall "
+            f"{wall:.4f} s (device busy {all_ms / 1e3 / wall:.1%}, profiler on) on {card}"
+        )
 
     # -- phase 5: slice C, the padded-ELL operator --------------------------
     timers.start("slice_c")
@@ -2130,9 +2359,7 @@ def main() -> int:
 
     # -- phase 10: the grouped solve, bench.py's layout ---------------------------
     timers.start("grouped")
-    launches_10, times_g, kernel_err_g, entry_err_g, plain_entry_err_g, walls_10 = grouped_phase(
-        torch, st, shared, gram_mod, dev, card
-    )
+    launches_10, times_g, errs_g, walls_10 = grouped_phase(torch, st, shared, gram_mod, dev, card)
     timers.stop("grouped")
 
     # -- phase 11: the sweep and study tools -----------------------------------
@@ -2161,22 +2388,51 @@ def main() -> int:
             f"warm) on {card}"
         )
 
-    bound_a, bound_by, bf16_a = gram_bound(128, 200, 1280)
-    bound_pl_a, bound_by_pl_a, bf16_pl_a = gram_bound(128, 200, 1280, matrices=128)
-    bound_b, _, bf16_b = gram_bound(64, 504, 5504)
-    bound_g, bound_by_g, bf16_g = gram_bound(1280, 200, 1280, matrices=10)
-    slabs = {
-        "slab_scpnre": ("slab scpnre", (2, 504, 2752)),
-        "slab_scpnrg": ("slab scpnrg", (1, 1024, 5632)),
-        "scpnrg": ("scpnrg", (1, 1024, 11264)),
-    }
+    def shapes(times_by_label, table, grouped=False):
+        """Phase 2's (10 (a)'s) times per shape, with the bound and floors."""
+        out = {}
+        for B, m, n, label in table:
+            lanes, matrices = (B[0] * B[1], B[0]) if grouped else (B, B if label.startswith("per-lane") else 1)
+            bound, by, floor6, floor3 = gram_bound(lanes, m, n, matrices=matrices)
+            t = times_by_label[label]
+            out[label] = {"shape": [lanes, m, n], **t, "bound_ms": bound, "bound_by": by,
+                          "share": bound / t["ms"], "bf16x6_floor_ms": floor6, "bf16x3_floor_ms": floor3}
+        return out
+
+    design = (
+        "lower-triangle 64x64 tiles, mma.sync m16n8k16 + cp.async; bf16x3 (A and a 3-way split "
+        "of A*w^2) where A is exact in bf16, else bf16x6 (3-way splits of A*w, six products); "
+        "split-k with a fixed-order second pass below two CTAs a SM"
+    )
+    shared_shapes = shapes(times, SHARED_SHAPES)
+    per_lane_shapes = shapes(times_pl, PER_LANE_SHAPES)
+    grouped_shapes = shapes(times_g, GROUPED_SHAPES, grouped=True)
+
+    def main_path(label, shape):
+        """The required keys of one kernels-line entry: the launches of
+        ``label``'s run, by path, and the kernel's numbers at ``shape``."""
+        rec = PATHS[label]
+        return {
+            "launches": rec["launches"],
+            "launches_bf16x3": rec["bf16x3"],
+            "launches_bf16x6": rec["bf16x6"],
+            "launches_split_k": rec["split_k"],
+            "ms": shape["ms"],
+            "plain_ms": shape["plain_ms"],
+            "bound_ms": shape["bound_ms"],
+            "bound_by": shape["bound_by"],
+            "library_ms": shape["library_ms"],
+        }
 
     print(json.dumps({"kernels": [{
         "name": "gram",
         "route": "cuda",
         "source": "sypha_tpu_torch/csrc/gram.cu",
         "replaces": "sypha_tpu/ops/pallas_gram.py:40",
-        "launches": launches_a,
+        **main_path("slice A", shared_shapes["cell A"]),
+        "max_abs_err": errs["max_abs_err"],
+        "design": design,
+        "library": "torch.matmul(Aw, Aw.mT), Aw precomputed, f32 highest (cuBLAS)",
         "launches_slice_b": launches_b,
         "launches_ell": launches_ell,
         "launches_bnb": launches_bnb,
@@ -2186,38 +2442,25 @@ def main() -> int:
         "launches_tp": launches_tp,
         "launches_tools": {tool: n - per_lane for tool, (n, per_lane) in launches_11.items()},
         "launches_lifecycle": launches_12,
+        "paths": PATHS,
         "tools": {tool: rec for (tool, form), rec in held_11.items() if form == "shared"},
-        "max_abs_err": kernel_err,
-        "ms": times["cell A"][0],
-        "plain_ms": times["cell A"][1],
-        "bound_ms": bound_a,
-        "bound_by": bound_by,
-        "library_ms": times["cell A"][2],
-        "design": "bf16x6 mma.sync SYRK",
-        "bound_ms_bf16x6": bf16_a,
-        "max_entry_rel_err": entry_err,
-        "plain_max_entry_rel_err": plain_entry_err,
-        "ms_cell_b": times["cell B"][0],
-        "plain_ms_cell_b": times["cell B"][1],
-        "bound_ms_cell_b": bound_b,
-        "bound_ms_bf16x6_cell_b": bf16_b,
-        "library_ms_cell_b": times["cell B"][2],
-        **{
-            f"{key}_b1_{label}": k1_b1[(1, m, n)][i]
-            for label, m, n in (("scp4x", 200, 1280), ("scpnre", 504, 5504))
-            for i, key in enumerate(("ms", "plain_ms", "library_ms"))
-        },
-        **{
-            f"{key}_{name}": (times[label] + (gram_bound(*shape)[0],))[i]
-            for name, (label, shape) in slabs.items()
-            for i, key in enumerate(("ms", "plain_ms", "library_ms", "bound_ms"))
+        "max_entry_rel_err_bf16x3": errs["bf16x3_entry"],
+        "max_entry_rel_err_bf16x6": errs["bf16x6_entry"],
+        "plain_max_entry_rel_err": errs["plain_entry"],
+        "shapes": shared_shapes,
+        "b1": {f"{m}x{n}": t for (_, m, n), t in k1_b1.items()},
+        "profiled_solves": {
+            label: dict(zip(("k1_device_ms", "k1_kernels", "device_ms", "wall_s"), rec))
+            for label, rec in k1_dev.items()
         },
     }, {
         "name": "gram_per_lane",
         "route": "cuda",
         "source": "sypha_tpu_torch/csrc/gram.cu",
         "replaces": "sypha_tpu/ops/pallas_gram.py:40",
-        "launches": launches_9a,
+        **main_path("phase 9 (a)", per_lane_shapes["per-lane cell A"]),
+        "max_abs_err": errs_pl["max_abs_err"],
+        "design": design + "; A lane stride m n",
         "launches_scpnre": launches_9b,
         "launches_cg": launches_9c,
         "launches_api": per_lane_api,
@@ -2225,46 +2468,22 @@ def main() -> int:
         "launches_mesh": launches_mesh_lanes,
         "launches_tools": {tool: per_lane for tool, (_, per_lane) in launches_11.items()},
         "tools": {tool: rec for (tool, form), rec in held_11.items() if form == "per_lane"},
-        "max_abs_err": kernel_err_pl,
-        "ms": times_pl["per-lane cell A"][0],
-        "plain_ms": times_pl["per-lane cell A"][1],
-        "bound_ms": bound_pl_a,
-        "bound_by": bound_by_pl_a,
-        "library_ms": times_pl["per-lane cell A"][2],
-        "shape": [128, 200, 1280],
-        "design": "bf16x6 mma.sync SYRK, A lane stride m n",
-        "bound_ms_bf16x6": bf16_pl_a,
-        "max_entry_rel_err": entry_err_pl,
-        "plain_max_entry_rel_err": plain_entry_err_pl,
-        **{
-            f"{key}_{name}": (times_pl[label] + gram_bound(*shape, matrices=shape[0])[:2])[i]
-            for name, (label, shape) in {
-                "cell_b": ("per-lane cell B", (64, 504, 5504)),
-                "b16": ("per-lane full range", (16, 504, 5504)),
-            }.items()
-            for i, key in enumerate(("ms", "plain_ms", "library_ms", "bound_ms", "bound_by"))
-        },
+        "max_entry_rel_err_bf16x3": errs_pl["bf16x3_entry"],
+        "max_entry_rel_err_bf16x6": errs_pl["bf16x6_entry"],
+        "plain_max_entry_rel_err": errs_pl["plain_entry"],
+        "shapes": per_lane_shapes,
     }, {
         "name": "gram_grouped",
         "route": "cuda",
         "source": "sypha_tpu_torch/csrc/gram.cu",
         "replaces": "sypha_tpu/ops/pallas_gram.py:40",
-        "launches": launches_10,
-        "max_abs_err": kernel_err_g,
-        "ms": times_g["grouped bench"][0],
-        "plain_ms": times_g["grouped bench"][1],
-        "bound_ms": bound_g,
-        "bound_by": bound_by_g,
-        "library_ms": times_g["grouped bench"][2],
-        "shape": [10, 128, 200, 1280],
-        "design": "bf16x6 mma.sync SYRK, one A per group of L lanes",
-        "bound_ms_bf16x6": bf16_g,
-        "max_entry_rel_err": entry_err_g,
-        "plain_max_entry_rel_err": plain_entry_err_g,
-        **{
-            f"{key}_ragged": (times_g["grouped ragged"] + gram_bound(15, 37, 301, matrices=3)[:2])[i]
-            for i, key in enumerate(("ms", "plain_ms", "library_ms", "bound_ms", "bound_by"))
-        },
+        **main_path("phase 10 (b) grouped", grouped_shapes["grouped bench"]),
+        "max_abs_err": errs_g["max_abs_err"],
+        "design": design + "; one A per group of L lanes",
+        "max_entry_rel_err_bf16x3": errs_g["bf16x3_entry"],
+        "max_entry_rel_err_bf16x6": errs_g["bf16x6_entry"],
+        "plain_max_entry_rel_err": errs_g["plain_entry"],
+        "shapes": grouped_shapes,
     }]}))
     print(card)
     print(json.dumps({

@@ -39,6 +39,7 @@ from sypha_tpu_torch.config import IpmOptions
 from sypha_tpu_torch.core.problem import PaddedLp
 from sypha_tpu_torch.core.status import IpmStatus
 from sypha_tpu_torch.ipm.shared import IpmState, _alpha_max_batch, _factor_params, use_cg_strategy
+from sypha_tpu_torch.ops.gram import bf16_exact
 from sypha_tpu_torch.ops.spd import _apply_normal_precond, normal_eq_factor, normal_eq_solve, pcg_solve
 
 RUNNING = int(IpmStatus.RUNNING)
@@ -63,18 +64,22 @@ def _check(lp: PaddedLp):
         )
 
 
-def initial_point(lp: PaddedLp, opts: IpmOptions = IpmOptions(), A_ft=None):
+def initial_point(lp: PaddedLp, opts: IpmOptions = IpmOptions(), A_ft=None, a_bf16_exact=None):
     """Mehrotra's initial-point heuristic per lane (reference
     src/sypha_solver_init.cpp:543-652): x = A^T (A A^T)^-1 b,
     y = (A A^T)^-1 A c, s = c - A^T y, then positivity shifts.  ``row_pad``
     regularises A A^T on pad rows.  ``A_ft`` is A already cast to the factor
-    dtype, when the caller has it."""
+    dtype, when the caller has it, and ``a_bf16_exact`` whether it is exact
+    in bf16 (``ops.gram.bf16_exact``; None leaves it to the Gram kernel's
+    wrapper)."""
     _check(lp)
     A, b, c = lp.A, lp.b, lp.c
     Av, ATu = _products(A)
     ft, ridge = _factor_params(opts)
     ones = torch.ones_like(c)
-    fac = normal_eq_factor(A if A_ft is None else A_ft, ones, lp.row_pad, ft, ridge, opts.chol_leaf_size)
+    fac = normal_eq_factor(
+        A if A_ft is None else A_ft, ones, lp.row_pad, ft, ridge, opts.chol_leaf_size, a_bf16_exact
+    )
 
     def matvec(v):
         return Av(ATu(v)) + lp.row_pad * v
@@ -137,9 +142,11 @@ def mehrotra_solve(
     # the Jacobi diagonal reads A∘A
     A_ft = A.to(ft).contiguous()
     A2 = A * A if use_cg else None
+    # once per solve: whether the f32 Gram may take K1's three-product path
+    a_exact = ft == torch.float32 and bf16_exact(A_ft)
 
     if x0 is None:
-        x, y, s = initial_point(lp, opts, A_ft)
+        x, y, s = initial_point(lp, opts, A_ft, a_exact)
     else:
         x, y, s = (torch.as_tensor(v, dtype=c.dtype, device=c.device) for v in (x0, y0, s0))
 
@@ -201,7 +208,7 @@ def mehrotra_solve(
 
             solve_gate = torch.clamp(100.0 * cg_tol[:, 0], min=1e-3)
         else:
-            fac = normal_eq_factor(A_ft, d2, row_pad, ft, ridge, opts.chol_leaf_size)
+            fac = normal_eq_factor(A_ft, d2, row_pad, ft, ridge, opts.chol_leaf_size, a_exact)
 
             def solve(f):
                 return pcg_solve(

@@ -68,7 +68,7 @@ from sypha_tpu_torch.core.problem import PaddedLp
 from sypha_tpu_torch.core.status import IpmStatus
 from sypha_tpu_torch.io.standard_form import bucket_dims, pad_lp, pad_standard_form_ell
 from sypha_tpu_torch.ops.ell import EllMatrix
-from sypha_tpu_torch.ops.gram import gram
+from sypha_tpu_torch.ops.gram import bf16_exact, gram
 from sypha_tpu_torch.ops.spd import NormalEqFactor, _apply_normal_precond, factor_gram, pcg_solve
 
 
@@ -308,22 +308,25 @@ def _reducers(group):
     )
 
 
-def _shared_factor(A32, d2_eff, row_reg, ft, ridge: float, leaf_size: int, group=None):
+def _shared_factor(
+    A32, d2_eff, row_reg, ft, ridge: float, leaf_size: int, group=None, a_bf16_exact=None
+):
     """Factor of M_b = A diag(d2_eff_b) A^T + diag(row_reg_b), batched.
 
     Returns (Linv, dinv): the inverse Cholesky factor of the Jacobi-
     equilibrated M (plus ridge) and the equilibration scales, both in ``ft``.
     In f32 the Gram matrix comes from the Gram kernel (``gram``), which
     applies w = sqrt(d2_eff) to A while loading it; a grouped A32 [G, m, n]
-    with d2_eff [G, L, n] forms all G L matrices in one launch.  Under
-    tensor parallelism (``group``) A32 and d2_eff are the rank's column
-    slab, and the partial Grams sum over the ranks before the ridge and the
-    scaling.
+    with d2_eff [G, L, n] forms all G L matrices in one launch;
+    ``a_bf16_exact`` (decided once per solve) picks its three-product path.
+    Under tensor parallelism (``group``) A32 and d2_eff are the rank's
+    column slab, and the partial Grams sum over the ranks before the ridge
+    and the scaling.
     """
     psum = _reducers(group)[0]
     w = torch.sqrt(d2_eff).to(ft)
     if ft == torch.float32:
-        M = gram(A32, w.contiguous())
+        M = gram(A32, w.contiguous(), a_bf16_exact=a_bf16_exact)
     else:
         Aw = (A32[:, None] if A32.ndim == 3 else A32[None]) * w[..., None, :]
         M = torch.einsum("...ik,...jk->...ij", Aw, Aw)
@@ -372,11 +375,12 @@ def use_cg_strategy(opts: IpmOptions, m_pad: int) -> bool:
 
 
 def shared_initial_point(
-    batch: SharedLpBatch, opts: IpmOptions, A32, use_cg: bool, group=None
+    batch: SharedLpBatch, opts: IpmOptions, A32, use_cg: bool, group=None, a_bf16_exact=None
 ):
     """Mehrotra initial point, batched over lanes of the shared matrix
     (``group``: tensor parallelism, as in ``mehrotra_solve_shared``; a
-    grouped batch's solves run per instance group)."""
+    grouped batch's solves run per instance group; ``a_bf16_exact`` as in
+    ``_shared_factor``)."""
     _check_group(batch, group)
     A, b, c, mask = batch.A, batch.b, batch.c, batch.col_mask
     Av, ATu, sqAv = _A_products(A)
@@ -399,7 +403,7 @@ def shared_initial_point(
             )[0]
     else:
         Linv, dinv = _shared_factor(
-            A32, mask, row_reg, ft, ridge, opts.chol_leaf_size, group
+            A32, mask, row_reg, ft, ridge, opts.chol_leaf_size, group, a_bf16_exact
         )
 
         def solve(f):
@@ -479,6 +483,9 @@ def mehrotra_solve_shared(
         A32 = None
     else:
         A32 = A.todense(ft) if batch.is_sparse else A.to(ft).contiguous()
+    # once per solve: whether the f32 Gram may take K1's three-product path
+    # (SCP rows are exact in bf16, and so are integer cut rows up to 256)
+    a_exact = ft == torch.float32 and A32 is not None and bf16_exact(A32)
     row_pad = batch.row_pad.unsqueeze(-2)  # [1, m], grouped [G, 1, m]
     row_reg = row_pad.expand(b.shape)
     RUNNING = int(IpmStatus.RUNNING)
@@ -502,7 +509,7 @@ def mehrotra_solve_shared(
         )
     else:
         if x0 is None:
-            x, y, s = shared_initial_point(batch, opts, A32, use_cg, group)
+            x, y, s = shared_initial_point(batch, opts, A32, use_cg, group, a_exact)
         else:
             x, y, s = x0, y0, s0
 
@@ -580,7 +587,7 @@ def mehrotra_solve_shared(
         else:
             if Linv_c is None:
                 Linv_c, dinv_c = _shared_factor(
-                    A32, d2_eff, row_reg, ft, ridge, opts.chol_leaf_size, group
+                    A32, d2_eff, row_reg, ft, ridge, opts.chol_leaf_size, group, a_exact
                 )
 
             def solve(f):
@@ -714,7 +721,7 @@ def mehrotra_solve_shared(
         else:
             d2_eff0 = torch.clamp(st.x / st.s, opts.d2_min, opts.d2_max) * mask
             Linv, dinv = _shared_factor(
-                A32, d2_eff0, row_reg, ft, ridge, opts.chol_leaf_size, group
+                A32, d2_eff0, row_reg, ft, ridge, opts.chol_leaf_size, group, a_exact
             )
         for _ in range(max(1, opts.factor_refresh_every)):
             st = one_step(st, Linv, dinv)

@@ -101,6 +101,7 @@ def normal_eq_factor(
     factor_dtype=torch.float32,
     ridge: float = 2e-6,
     leaf_size: int = 64,
+    a_bf16_exact: bool | None = None,
 ) -> NormalEqFactor:
     """Factor M = A diag(d2) A^T + diag(row_reg) in ``factor_dtype``.
 
@@ -108,12 +109,14 @@ def normal_eq_factor(
     (pass it already in the factor dtype to skip the cast); d2: [B, n] >= 0;
     row_reg: [B, m].  M is formed as Aw Aw^T with Aw = A * sqrt(d2), so it
     is symmetric and PSD; in f32 by the Gram kernel, in f64 by an einsum.
+    ``a_bf16_exact`` is ``ops.gram.bf16_exact`` of A in f32 when the caller
+    decided it once per solve (None: the Gram kernel's wrapper decides).
     """
     ft = factor_dtype
     A = A.to(ft)
     w = torch.sqrt(d2).to(ft)
     if ft == torch.float32:
-        M = gram(A.contiguous(), w.contiguous())
+        M = gram(A.contiguous(), w.contiguous(), a_bf16_exact=a_bf16_exact)
     else:
         Aw = A * w[:, None, :]
         M = torch.einsum("bik,bjk->bij", Aw, Aw)

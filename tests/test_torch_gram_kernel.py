@@ -23,6 +23,10 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def _sms(device):
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def _entry_rel_err(M, G64, bound):
     """max_ij |M - G64|_ij / (|Aw| |Aw|^T)_ij; entries with a zero bound must be exact."""
     err = (M.double() - G64).abs()
@@ -92,9 +96,12 @@ def test_gram_kernel_per_lane_matches_plain_version_on_card(cuda_device, B, m, n
     assert ((got.double() - want).abs() <= 1e-5 * scale).all()
     assert _entry_rel_err(got, want, bound) <= 4 * _entry_rel_err(plain, want, bound)
     assert torch.equal(got, got.mT)
-    # lane b is the shared form of A32[b]
+    # lane b is the shared form of A32[b] on the same path with k cut as
+    # in the batch (a lone lane cuts k finer, and sums in another order)
+    splits = tgram._plan(B, m, n, _sms(cuda_device))
     for b in (0, B - 1):
-        assert torch.equal(got[b], tgram.gram(A32[b].contiguous(), w[b : b + 1].contiguous())[0])
+        one = tgram._launch(A32[b].contiguous(), w[b : b + 1].contiguous(), tgram.bf16_exact(A32), splits)
+        assert torch.equal(got[b], one[0])
 
 
 @pytest.mark.cuda
@@ -130,10 +137,50 @@ def test_gram_kernel_grouped_matches_plain_version_on_card(cuda_device, G, L, m,
     assert ((got.double() - want).abs() <= 1e-5 * scale).all()
     assert _entry_rel_err(got, want, bound) <= 4 * _entry_rel_err(plain, want, bound)
     assert torch.equal(got, got.mT)
-    # lane (g, l) is the shared form of A32[g] with w[g, l], bit for bit
+    # lane (g, l) is the shared form of A32[g] with w[g, l], bit for bit, on
+    # the same path with k cut as in the batch
+    splits = tgram._plan(G * L, m, n, _sms(cuda_device))
     for g, lane in ((0, 0), (G // 2, L // 2), (G - 1, L - 1)):
-        one = tgram.gram(A32[g].contiguous(), w[g, lane : lane + 1].contiguous())[0]
-        assert torch.equal(got[g, lane], one)
+        one = tgram._launch(A32[g].contiguous(), w[g, lane : lane + 1].contiguous(), tgram.bf16_exact(A32), splits)
+        assert torch.equal(got[g, lane], one[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,m,n", [(1, 200, 1280), (2, 200, 1280), (1, 504, 5504), (2, 504, 5504)])
+@pytest.mark.parametrize("exact", [True, False], ids=["bf16x3", "bf16x6"])
+@pytest.mark.parametrize("form", ["shared", "per_lane"])
+def test_gram_kernel_small_b_on_card(cuda_device, form, exact, B, m, n):
+    """One or two lanes: split-k, on an A exact in bf16 (0/+-1, the
+    three-product path) and on a general f32 A (uniform in [-1, 1], the
+    six-product path); a repeated call gives the same bits."""
+    rng = np.random.default_rng(B + m + n + exact)
+    a_shape = (B, m, n) if form == "per_lane" else (m, n)
+    A = rng.integers(-1, 2, size=a_shape) if exact else rng.uniform(-1.0, 1.0, size=a_shape)
+    A32 = torch.from_numpy(A.astype(np.float32)).to(cuda_device)
+    w = np.sqrt(10.0 ** rng.uniform(-12, 6, size=(B, n)))
+    w = torch.from_numpy(w.astype(np.float32)).to(cuda_device)
+    assert tgram.bf16_exact(A32) == exact
+    assert tgram._plan(B, m, n, _sms(cuda_device)) > 1
+    counters = ("launches", "launches_bf16x3", "launches_split_k", "launches_per_lane")
+    before = [getattr(tgram.gram, c) for c in counters]
+    got = tgram.gram(A32, w)
+    torch.cuda.synchronize()
+    after = [getattr(tgram.gram, c) for c in counters]
+    assert [a - b for a, b in zip(after, before)] == [1, int(exact), 1, int(form == "per_lane")]
+    plain = tgram.gram_reference(A32, w)
+    Aw = (A32.double() if form == "per_lane" else A32.double()[None]) * w.double()[:, None]
+    want = Aw @ Aw.mT
+    bound = Aw.abs() @ Aw.abs().mT
+    scale = want.abs().max().item()
+    assert (got.double() - want).abs().max().item() <= 1e-5 * scale
+    assert (got - plain).abs().max().item() <= 1e-5 * scale
+    assert _entry_rel_err(got, want, bound) <= 4 * _entry_rel_err(plain, want, bound)
+    assert torch.equal(got, got.mT)
+    assert torch.equal(got, tgram.gram(A32, w)), "split-k sums in a fixed order"
+    # the same path in one pass (no split) is held to the same gates
+    one = tgram._launch(A32, w, exact, 1)
+    assert (one - plain).abs().max().item() <= 1e-5 * scale
+    assert _entry_rel_err(one, want, bound) <= 4 * _entry_rel_err(plain, want, bound)
 
 
 @pytest.mark.cuda
