@@ -1,0 +1,9 @@
+"""device_idle_pct.lp: the share of the traced window in which no operation
+ran on the device, in %, in the LP cells."""
+
+
+def read(ctx):
+    t = ctx["trace"]
+    if not t or not t["window_s"]:
+        return None
+    return 100.0 * (1.0 - t["busy_s"] / t["window_s"])
