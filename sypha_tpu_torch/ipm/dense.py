@@ -32,6 +32,7 @@ shared-matrix engine (ipm.shared), and the JAX dense engine ignores them too.
 from __future__ import annotations
 
 import dataclasses
+import threading
 
 import torch
 
@@ -41,8 +42,10 @@ from sypha_tpu_torch.core.status import IpmStatus
 from sypha_tpu_torch.ipm.shared import IpmState, _alpha_max_batch, _factor_params, use_cg_strategy
 from sypha_tpu_torch.ops.gram import bf16_exact
 from sypha_tpu_torch.ops.spd import _apply_normal_precond, normal_eq_factor, normal_eq_solve, pcg_solve
+from sypha_tpu_torch.utils.telemetry import span
 
 RUNNING = int(IpmStatus.RUNNING)
+_count_lock = threading.Lock()
 
 
 def _products(A: torch.Tensor):
@@ -77,9 +80,10 @@ def initial_point(lp: PaddedLp, opts: IpmOptions = IpmOptions(), A_ft=None, a_bf
     Av, ATu = _products(A)
     ft, ridge = _factor_params(opts)
     ones = torch.ones_like(c)
-    fac = normal_eq_factor(
-        A if A_ft is None else A_ft, ones, lp.row_pad, ft, ridge, opts.chol_leaf_size, a_bf16_exact
-    )
+    with span("ipm.factor"):
+        fac = normal_eq_factor(
+            A if A_ft is None else A_ft, ones, lp.row_pad, ft, ridge, opts.chol_leaf_size, a_bf16_exact
+        )
 
     def matvec(v):
         return Av(ATu(v)) + lp.row_pad * v
@@ -129,7 +133,18 @@ def mehrotra_solve(
 ) -> IpmState:
     """Full Mehrotra solve of every lane of a stacked dense PaddedLp,
     optionally warm-started from (x0, y0, s0) ([B, n], [B, m], [B, n]).
-    Returns an IpmState with [B] leaves, on the LP's device."""
+    Returns an IpmState with [B] leaves, on the LP's device.
+
+    The spans and counters of ``ipm.shared.mehrotra_solve_shared``:
+    ``ipm.solve`` around the call, ``ipm.initial_point``, ``ipm.iteration``
+    (``ipm.factor``, ``ipm.predictor``, ``ipm.corrector``) and ``ipm.sync``;
+    ``mehrotra_solve.iterations`` counts the steps and
+    ``mehrotra_solve.syncs`` the syncs outside ``pcg_solve``."""
+    with span("ipm.solve"):
+        return _solve_dense(lp, opts, x0, y0, s0)
+
+
+def _solve_dense(lp: PaddedLp, opts: IpmOptions, x0, y0, s0) -> IpmState:
     _check(lp)
     A, b, c, row_pad = lp.A, lp.b, lp.c, lp.row_pad
     Av, ATu = _products(A)
@@ -143,10 +158,15 @@ def mehrotra_solve(
     A_ft = A.to(ft).contiguous()
     A2 = A * A if use_cg else None
     # once per solve: whether the f32 Gram may take K1's three-product path
-    a_exact = ft == torch.float32 and bf16_exact(A_ft)
+    a_exact = False
+    syncs = 0
+    if ft == torch.float32:
+        a_exact = bf16_exact(A_ft)
+        syncs += 1
 
     if x0 is None:
-        x, y, s = initial_point(lp, opts, A_ft, a_exact)
+        with span("ipm.initial_point"):
+            x, y, s = initial_point(lp, opts, A_ft, a_exact)
     else:
         x, y, s = (torch.as_tensor(v, dtype=c.dtype, device=c.device) for v in (x0, y0, s0))
 
@@ -208,7 +228,8 @@ def mehrotra_solve(
 
             solve_gate = torch.clamp(100.0 * cg_tol[:, 0], min=1e-3)
         else:
-            fac = normal_eq_factor(A_ft, d2, row_pad, ft, ridge, opts.chol_leaf_size, a_exact)
+            with span("ipm.factor"):
+                fac = normal_eq_factor(A_ft, d2, row_pad, ft, ridge, opts.chol_leaf_size, a_exact)
 
             def solve(f):
                 return pcg_solve(
@@ -231,15 +252,17 @@ def mehrotra_solve(
 
         # predictor (affine scaling)
         r_xs = x * s
-        dxa, dya, dsa, rel_a = newton(r_xs)
-        a_p = _alpha_max_batch(x, dxa)[:, None]
-        a_d = _alpha_max_batch(s, dsa)[:, None]
-        mu_aff = _dot(x + a_p * dxa, s + a_d * dsa) / n_pad
-        sigma = (mu_aff / mu) ** opts.sigma_pow
+        with span("ipm.predictor"):
+            dxa, dya, dsa, rel_a = newton(r_xs)
+            a_p = _alpha_max_batch(x, dxa)[:, None]
+            a_d = _alpha_max_batch(s, dsa)[:, None]
+            mu_aff = _dot(x + a_p * dxa, s + a_d * dsa) / n_pad
+            sigma = (mu_aff / mu) ** opts.sigma_pow
 
         # corrector on the same factor (reference corrector_rhs_dev,
         # src/sypha_solver_utils.cu:51-65)
-        dx, dy, ds, rel_c = newton(r_xs + dxa * dsa - (sigma * mu)[:, None])
+        with span("ipm.corrector"):
+            dx, dy, ds, rel_c = newton(r_xs + dxa * dsa - (sigma * mu)[:, None])
 
         if opts.adaptive_eta:
             eta = torch.clamp(1.0 - mu, min=opts.eta)
@@ -294,19 +317,32 @@ def mehrotra_solve(
         )
 
     st = _make_state(lp, x, y, s)
+    iterations = 0
     while True:
         run = st.status == RUNNING
-        if not run.any():
+        with span("ipm.sync"):
+            go = bool(run.any())
+        syncs += 1
+        if not go:
             break
-        new = body(st, run)
-        st = IpmState(
-            **{
-                f.name: torch.where(
-                    run if getattr(st, f.name).ndim == 1 else run[:, None],
-                    getattr(new, f.name),
-                    getattr(st, f.name),
-                )
-                for f in dataclasses.fields(IpmState)
-            }
-        )
+        with span("ipm.iteration"):
+            new = body(st, run)
+            st = IpmState(
+                **{
+                    f.name: torch.where(
+                        run if getattr(st, f.name).ndim == 1 else run[:, None],
+                        getattr(new, f.name),
+                        getattr(st, f.name),
+                    )
+                    for f in dataclasses.fields(IpmState)
+                }
+            )
+        iterations += 1
+    with _count_lock:
+        mehrotra_solve.iterations += iterations
+        mehrotra_solve.syncs += syncs
     return st
+
+
+mehrotra_solve.iterations = 0
+mehrotra_solve.syncs = 0

@@ -19,6 +19,7 @@ from sypha_tpu_torch.ipm.shared import (
     make_shared_batch,
     mehrotra_solve_shared,
 )
+from sypha_tpu_torch.utils.telemetry import span
 
 
 def solve_node_batch(
@@ -39,25 +40,27 @@ def solve_node_batch(
 
     ``warm`` warm-starts each lane from its parent's iterate shifted back to
     the interior.  ``resume``/``iter_limit`` run a window solve in chunks,
-    with a wall-clock check between them.
+    with a wall-clock check between them.  A call is the span
+    ``ipm.node_batch``.
     """
-    batch = make_shared_batch(base, fix0.shape[0])
-    batch = fix_columns(batch, fix0, fix1)
-    if resume is not None:
-        st = mehrotra_solve_shared(batch, opts, state0=resume, iter_limit=iter_limit)
-    elif warm is not None:
-        xw, yw, sw = warm
-        eps = 1e-3
-        dt = batch.c.dtype
-        x0 = torch.clamp(xw.to(dt), min=eps)
-        s0 = torch.clamp(sw.to(dt), min=eps)
-        st = mehrotra_solve_shared(
-            batch, opts, x0, yw.to(dt), s0, iter_limit=iter_limit
-        )
-    else:
-        st = mehrotra_solve_shared(batch, opts, iter_limit=iter_limit)
-    x_masked = st.x * batch.col_mask
-    x_full = x_masked + torch.as_tensor(fix1, dtype=st.x.dtype, device=st.x.device)
-    pobj = torch.sum(batch.c * x_masked, dim=-1) + batch.obj_offset
-    dobj = torch.sum(batch.b * st.y, dim=-1) + batch.obj_offset
-    return st, x_full, pobj, dobj
+    with span("ipm.node_batch"):
+        batch = make_shared_batch(base, fix0.shape[0])
+        batch = fix_columns(batch, fix0, fix1)
+        if resume is not None:
+            st = mehrotra_solve_shared(batch, opts, state0=resume, iter_limit=iter_limit)
+        elif warm is not None:
+            xw, yw, sw = warm
+            eps = 1e-3
+            dt = batch.c.dtype
+            x0 = torch.clamp(xw.to(dt), min=eps)
+            s0 = torch.clamp(sw.to(dt), min=eps)
+            st = mehrotra_solve_shared(
+                batch, opts, x0, yw.to(dt), s0, iter_limit=iter_limit
+            )
+        else:
+            st = mehrotra_solve_shared(batch, opts, iter_limit=iter_limit)
+        x_masked = st.x * batch.col_mask
+        x_full = x_masked + torch.as_tensor(fix1, dtype=st.x.dtype, device=st.x.device)
+        pobj = torch.sum(batch.c * x_masked, dim=-1) + batch.obj_offset
+        dobj = torch.sum(batch.b * st.y, dim=-1) + batch.obj_offset
+        return st, x_full, pobj, dobj

@@ -56,6 +56,7 @@ that every rank takes the same branch and issues the same collectives.
 from __future__ import annotations
 
 import dataclasses
+import threading
 from dataclasses import dataclass
 
 import numpy as np
@@ -70,6 +71,9 @@ from sypha_tpu_torch.io.standard_form import bucket_dims, pad_lp, pad_standard_f
 from sypha_tpu_torch.ops.ell import EllMatrix
 from sypha_tpu_torch.ops.gram import bf16_exact, gram
 from sypha_tpu_torch.ops.spd import NormalEqFactor, _apply_normal_precond, factor_gram, pcg_solve
+from sypha_tpu_torch.utils.telemetry import span
+
+_count_lock = threading.Lock()
 
 
 @dataclass(frozen=True)
@@ -321,16 +325,17 @@ def _shared_factor(
     ``a_bf16_exact`` (decided once per solve) picks its three-product path.
     Under tensor parallelism (``group``) A32 and d2_eff are the rank's
     column slab, and the partial Grams sum over the ranks before the ridge
-    and the scaling.
+    and the scaling.  The span ``ipm.factor``.
     """
     psum = _reducers(group)[0]
-    w = torch.sqrt(d2_eff).to(ft)
-    if ft == torch.float32:
-        M = gram(A32, w.contiguous(), a_bf16_exact=a_bf16_exact)
-    else:
-        Aw = (A32[:, None] if A32.ndim == 3 else A32[None]) * w[..., None, :]
-        M = torch.einsum("...ik,...jk->...ij", Aw, Aw)
-    return factor_gram(psum(M), row_reg, ridge, leaf_size)
+    with span("ipm.factor"):
+        w = torch.sqrt(d2_eff).to(ft)
+        if ft == torch.float32:
+            M = gram(A32, w.contiguous(), a_bf16_exact=a_bf16_exact)
+        else:
+            Aw = (A32[:, None] if A32.ndim == 3 else A32[None]) * w[..., None, :]
+            M = torch.einsum("...ik,...jk->...ij", Aw, Aw)
+        return factor_gram(psum(M), row_reg, ridge, leaf_size)
 
 
 def _precond(Linv, dinv, r):
@@ -470,7 +475,19 @@ def mehrotra_solve_shared(
     and x0/s0 when given) with b, row_pad and obj_offset whole, and the
     returned x and s are this rank's slabs (see the module docstring).  A
     grouped batch with a ``group`` raises ValueError.
+
+    A call is the span ``ipm.solve``; inside it ``ipm.initial_point``, one
+    ``ipm.iteration`` per step (``ipm.factor``, ``ipm.predictor``,
+    ``ipm.corrector``, ``ipm.centrality``) and ``ipm.sync`` around each
+    loop test.  ``mehrotra_solve_shared.iterations`` counts the steps and
+    ``mehrotra_solve_shared.syncs`` the device-to-host syncs the call makes
+    outside ``pcg_solve``: the loop tests and K1's exactness read.
     """
+    with span("ipm.solve"):
+        return _solve_shared(batch, opts, x0, y0, s0, state0, iter_limit, group)
+
+
+def _solve_shared(batch, opts, x0, y0, s0, state0, iter_limit, group) -> IpmState:
     _check_group(batch, group)
     A, b, c, mask = batch.A, batch.b, batch.c, batch.col_mask
     Av, ATu, sqAv = _A_products(A)
@@ -485,7 +502,11 @@ def mehrotra_solve_shared(
         A32 = A.todense(ft) if batch.is_sparse else A.to(ft).contiguous()
     # once per solve: whether the f32 Gram may take K1's three-product path
     # (SCP rows are exact in bf16, and so are integer cut rows up to 256)
-    a_exact = ft == torch.float32 and A32 is not None and bf16_exact(A32)
+    a_exact = False
+    syncs = 0
+    if ft == torch.float32 and A32 is not None:
+        a_exact = bf16_exact(A32)
+        syncs += 1
     row_pad = batch.row_pad.unsqueeze(-2)  # [1, m], grouped [G, 1, m]
     row_reg = row_pad.expand(b.shape)
     RUNNING = int(IpmStatus.RUNNING)
@@ -509,7 +530,8 @@ def mehrotra_solve_shared(
         )
     else:
         if x0 is None:
-            x, y, s = shared_initial_point(batch, opts, A32, use_cg, group, a_exact)
+            with span("ipm.initial_point"):
+                x, y, s = shared_initial_point(batch, opts, A32, use_cg, group, a_exact)
         else:
             x, y, s = x0, y0, s0
 
@@ -611,43 +633,46 @@ def mehrotra_solve_shared(
             return dx, dy, ds, solve_rel
 
         r_xs = x * s
-        dxa, dya, dsa, rel_a = newton(r_xs)
-        a_p = pmin(_alpha_max_batch(x, dxa))[..., None]
-        a_d = pmin(_alpha_max_batch(s, dsa))[..., None]
-        mu_aff = psum(torch.sum((x + a_p * dxa) * (s + a_d * dsa), dim=-1)) / n_total
-        sigma = (mu_aff / mu) ** opts.sigma_pow
+        with span("ipm.predictor"):
+            dxa, dya, dsa, rel_a = newton(r_xs)
+            a_p = pmin(_alpha_max_batch(x, dxa))[..., None]
+            a_d = pmin(_alpha_max_batch(s, dsa))[..., None]
+            mu_aff = psum(torch.sum((x + a_p * dxa) * (s + a_d * dsa), dim=-1)) / n_total
+            sigma = (mu_aff / mu) ** opts.sigma_pow
 
-        dx, dy, ds, rel_c = newton(r_xs + dxa * dsa - (sigma * mu)[..., None])
+        with span("ipm.corrector"):
+            dx, dy, ds, rel_c = newton(r_xs + dxa * dsa - (sigma * mu)[..., None])
 
         # Gondzio multiple centrality correctors: push complementarity
         # products toward [beta_min, beta_max] * sigma*mu with extra solves
         # on the same factor; accept a correction only if it lengthens the
         # step.  The corrector's alphas stay rank-local, as in the JAX package.
         mu_t = (sigma * mu)[..., None]
-        for _ in range(opts.max_correctors):
-            ap = _alpha_max_batch(x, dx)
-            ad = _alpha_max_batch(s, ds)
-            ap_t = torch.clamp(ap * 1.08 + 0.08, max=1.0)[..., None]
-            ad_t = torch.clamp(ad * 1.08 + 0.08, max=1.0)[..., None]
-            v = (x + ap_t * dx) * (s + ad_t * ds)
-            target = torch.clamp(
-                v, opts.corrector_beta_min * mu_t, opts.corrector_beta_max * mu_t
-            )
-            t = v - target  # residual to remove (0 inside the window)
-            vec1 = t / s_safe
-            fcc = psum(Av(mask * vec1))
-            dyc, _ = solve(fcc)
-            dsc = -(mask * ATu(dyc))
-            dxc = -vec1 - d2 * dsc
-            ap2 = _alpha_max_batch(x, dx + dxc)
-            ad2 = _alpha_max_batch(s, ds + dsc)
-            better = ((ap2 >= ap + 0.01) & (ad2 >= ad)) | (
-                (ad2 >= ad + 0.01) & (ap2 >= ap)
-            )
-            sel_c = better[..., None]
-            dx = torch.where(sel_c, dx + dxc, dx)
-            dy = torch.where(sel_c, dy + dyc, dy)
-            ds = torch.where(sel_c, ds + dsc, ds)
+        with span("ipm.centrality"):
+            for _ in range(opts.max_correctors):
+                ap = _alpha_max_batch(x, dx)
+                ad = _alpha_max_batch(s, ds)
+                ap_t = torch.clamp(ap * 1.08 + 0.08, max=1.0)[..., None]
+                ad_t = torch.clamp(ad * 1.08 + 0.08, max=1.0)[..., None]
+                v = (x + ap_t * dx) * (s + ad_t * ds)
+                target = torch.clamp(
+                    v, opts.corrector_beta_min * mu_t, opts.corrector_beta_max * mu_t
+                )
+                t = v - target  # residual to remove (0 inside the window)
+                vec1 = t / s_safe
+                fcc = psum(Av(mask * vec1))
+                dyc, _ = solve(fcc)
+                dsc = -(mask * ATu(dyc))
+                dxc = -vec1 - d2 * dsc
+                ap2 = _alpha_max_batch(x, dx + dxc)
+                ad2 = _alpha_max_batch(s, ds + dsc)
+                better = ((ap2 >= ap + 0.01) & (ad2 >= ad)) | (
+                    (ad2 >= ad + 0.01) & (ap2 >= ap)
+                )
+                sel_c = better[..., None]
+                dx = torch.where(sel_c, dx + dxc, dx)
+                dy = torch.where(sel_c, dy + dyc, dy)
+                ds = torch.where(sel_c, ds + dsc, ds)
 
         if opts.adaptive_eta:
             eta = torch.clamp(1.0 - mu, min=opts.eta)
@@ -714,7 +739,13 @@ def mehrotra_solve_shared(
         )
 
     st = state0
-    while agree((st.status == RUNNING).any()):
+    iterations = 0
+    while True:
+        with span("ipm.sync"):
+            go = agree((st.status == RUNNING).any())
+        syncs += 1
+        if not go:
+            break
         top = st
         if use_cg or opts.factor_refresh_every <= 1:
             Linv = dinv = None  # one_step factors inline (or needs none)
@@ -724,8 +755,17 @@ def mehrotra_solve_shared(
                 A32, d2_eff0, row_reg, ft, ridge, opts.chol_leaf_size, group, a_exact
             )
         for _ in range(max(1, opts.factor_refresh_every)):
-            st = one_step(st, Linv, dinv)
+            with span("ipm.iteration"):
+                st = one_step(st, Linv, dinv)
+            iterations += 1
         if grouped:
             st = _keep_frozen_groups((top.status == RUNNING).any(dim=-1), st, top)
+    with _count_lock:
+        mehrotra_solve_shared.iterations += iterations
+        mehrotra_solve_shared.syncs += syncs
     return st
+
+
+mehrotra_solve_shared.iterations = 0
+mehrotra_solve_shared.syncs = 0
 

@@ -19,6 +19,9 @@ package: SYPHA_TPU_NATIVE_LIB names an alternate build of the library,
 loaded (built there first, if absent) in place of the hashed one, and
 SYPHA_TPU_DUMP_FACES names a directory where every ``exact_cover`` call
 saves its exact arguments as ``face_<ns>.npz`` before the native call.
+
+Each call into the library is the span ``native.<entry>`` (utils.telemetry),
+the build ``native.build``.
 """
 
 from __future__ import annotations
@@ -33,6 +36,8 @@ from pathlib import Path
 from typing import Optional
 
 import numpy as np
+
+from sypha_tpu_torch.utils.telemetry import span
 
 _SRC = Path(__file__).resolve().parent.parent / "csrc" / "sypha_host.cpp"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -70,12 +75,13 @@ def _build(lib: Path) -> bool:
     lib.parent.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
     try:
-        subprocess.run(
-            ["g++", *GXX_FLAGS, "-o", str(tmp), str(_SRC)],
-            check=True,
-            capture_output=True,
-            timeout=300,
-        )
+        with span("native.build"):
+            subprocess.run(
+                ["g++", *GXX_FLAGS, "-o", str(tmp), str(_SRC)],
+                check=True,
+                capture_output=True,
+                timeout=300,
+            )
         os.replace(tmp, lib)
         return True
     except (OSError, subprocess.SubprocessError):
@@ -183,21 +189,22 @@ def read_scp_file_native(path: str):
     lib = get_lib()
     if lib is None:
         return None
-    h = lib.sypha_scp_open(path.encode())
-    if not h:
-        return None
-    try:
-        nrows = ctypes.c_int()
-        ncols = ctypes.c_int()
-        nnz = ctypes.c_int64()
-        lib.sypha_scp_dims(h, ctypes.byref(nrows), ctypes.byref(ncols), ctypes.byref(nnz))
-        costs = np.empty(ncols.value, dtype=np.float64)
-        row_ptr = np.empty(nrows.value + 1, dtype=np.int64)
-        row_idx = np.empty(max(nnz.value, 1), dtype=np.int32)
-        lib.sypha_scp_fill(h, costs, row_ptr, row_idx)
-        return costs, row_ptr, row_idx[: nnz.value], nrows.value, ncols.value
-    finally:
-        lib.sypha_scp_close(h)
+    with span("native.read_scp_file"):
+        h = lib.sypha_scp_open(path.encode())
+        if not h:
+            return None
+        try:
+            nrows = ctypes.c_int()
+            ncols = ctypes.c_int()
+            nnz = ctypes.c_int64()
+            lib.sypha_scp_dims(h, ctypes.byref(nrows), ctypes.byref(ncols), ctypes.byref(nnz))
+            costs = np.empty(ncols.value, dtype=np.float64)
+            row_ptr = np.empty(nrows.value + 1, dtype=np.int64)
+            row_idx = np.empty(max(nnz.value, 1), dtype=np.int32)
+            lib.sypha_scp_fill(h, costs, row_ptr, row_idx)
+            return costs, row_ptr, row_idx[: nnz.value], nrows.value, ncols.value
+        finally:
+            lib.sypha_scp_close(h)
 
 
 class _ModelArrays:
@@ -245,13 +252,14 @@ def _run_rule(model, fn_name: str, tol: float, deadline_sec: float) -> Optional[
     ar = _arrays(model)
     active = model.active.astype(np.uint8)
     fn = getattr(lib, fn_name)
-    if fn_name == "sypha_single_column_dominance":
-        removed = fn(ar.masks, ar.nwords, ar.costs, active, ar.ncols,
-                     tol, deadline_sec)
-    else:
-        removed = fn(ar.masks, ar.nwords, ar.costs, active, ar.ncols,
-                     ar.row_ptr, ar.row_idx, ar.nrows, ar.col_ptr, ar.col_idx,
-                     tol, deadline_sec)
+    with span("native." + fn_name.removeprefix("sypha_")):
+        if fn_name == "sypha_single_column_dominance":
+            removed = fn(ar.masks, ar.nwords, ar.costs, active, ar.ncols,
+                         tol, deadline_sec)
+        else:
+            removed = fn(ar.masks, ar.nwords, ar.costs, active, ar.ncols,
+                         ar.row_ptr, ar.row_idx, ar.nrows, ar.col_ptr, ar.col_idx,
+                         tol, deadline_sec)
     model.active[:] = active.astype(bool)
     return int(removed)
 
@@ -274,11 +282,12 @@ def budget_pruning(model, incumbent, tol, deadline_sec) -> Optional[int]:
         return None
     ar = _arrays(model)
     active = model.active.astype(np.uint8)
-    removed = lib.sypha_budget_pruning(
-        ar.masks, ar.nwords, ar.costs, active, ar.ncols,
-        ar.row_ptr, ar.row_idx, ar.nrows,
-        float(incumbent), tol, deadline_sec,
-    )
+    with span("native.budget_pruning"):
+        removed = lib.sypha_budget_pruning(
+            ar.masks, ar.nwords, ar.costs, active, ar.ncols,
+            ar.row_ptr, ar.row_idx, ar.nrows,
+            float(incumbent), tol, deadline_sec,
+        )
     model.active[:] = active.astype(bool)
     return int(removed)
 
@@ -292,10 +301,11 @@ def greedy_set_cover(model):
     active = model.active.astype(np.uint8)
     selected = np.zeros(ar.ncols, dtype=np.int32)
     obj = ctypes.c_double()
-    nsel = lib.sypha_greedy_set_cover(
-        ar.col_ptr, ar.col_idx, ar.costs, active,
-        ar.nrows, ar.ncols, selected, ctypes.byref(obj),
-    )
+    with span("native.greedy_set_cover"):
+        nsel = lib.sypha_greedy_set_cover(
+            ar.col_ptr, ar.col_idx, ar.costs, active,
+            ar.nrows, ar.ncols, selected, ctypes.byref(obj),
+        )
     if nsel < 0:
         return (np.inf, np.zeros(0, dtype=np.int64))
     return (float(obj.value), selected[:nsel].astype(np.int64))
@@ -373,20 +383,22 @@ def exact_cover(model, budget: float, deadline_sec: float, duals=None,
         nc = int(len(cut_w))
         if cut_coef.shape != (nc, model.ncols):
             raise ValueError(f"cut coefficients {cut_coef.shape}, expected {(nc, model.ncols)}")
-        rc = lib.sypha_exact_cover_cuts(
-            ar.masks, ctypes.c_int64(ar.nwords), ar.costs, active,
-            ctypes.c_int64(ar.ncols), ar.col_ptr, ar.col_idx,
-            ctypes.c_int64(ar.nrows),
-            float(budget), float(deadline_sec), y, out,
-            cut_w, cut_coef, cut_rhs, ctypes.c_int64(nc),
-        )
+        with span("native.exact_cover_cuts"):
+            rc = lib.sypha_exact_cover_cuts(
+                ar.masks, ctypes.c_int64(ar.nwords), ar.costs, active,
+                ctypes.c_int64(ar.ncols), ar.col_ptr, ar.col_idx,
+                ctypes.c_int64(ar.nrows),
+                float(budget), float(deadline_sec), y, out,
+                cut_w, cut_coef, cut_rhs, ctypes.c_int64(nc),
+            )
     else:
-        rc = lib.sypha_exact_cover(
-            ar.masks, ctypes.c_int64(ar.nwords), ar.costs, active,
-            ctypes.c_int64(ar.ncols), ar.col_ptr, ar.col_idx,
-            ctypes.c_int64(ar.nrows),
-            float(budget), float(deadline_sec), y, out,
-        )
+        with span("native.exact_cover"):
+            rc = lib.sypha_exact_cover(
+                ar.masks, ctypes.c_int64(ar.nwords), ar.costs, active,
+                ctypes.c_int64(ar.ncols), ar.col_ptr, ar.col_idx,
+                ctypes.c_int64(ar.nrows),
+                float(budget), float(deadline_sec), y, out,
+            )
     if rc == 1:
         return True, out.astype(np.float64)
     if rc == 0:

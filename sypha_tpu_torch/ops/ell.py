@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from sypha_tpu_torch.core.device import resolve_device
+from sypha_tpu_torch.utils.telemetry import span
 
 
 @dataclass(frozen=True)
@@ -64,31 +65,35 @@ class EllMatrix:
         return g.reshape(v.shape[:-1] + idx.shape)
 
     def Av(self, v: torch.Tensor) -> torch.Tensor:
-        """[..., n_pad] -> [..., m_pad]: A @ v."""
-        return torch.sum(self._gather(v, self.row_idx) * self.row_val, dim=-1)
+        """[..., n_pad] -> [..., m_pad]: A @ v (the span ``ell.Av``)."""
+        with span("ell.Av"):
+            return torch.sum(self._gather(v, self.row_idx) * self.row_val, dim=-1)
 
     def ATu(self, u: torch.Tensor) -> torch.Tensor:
-        """[..., m_pad] -> [..., n_pad]: A^T @ u."""
-        return torch.sum(self._gather(u, self.col_idx) * self.col_val, dim=-1)
+        """[..., m_pad] -> [..., n_pad]: A^T @ u (the span ``ell.ATu``)."""
+        with span("ell.ATu"):
+            return torch.sum(self._gather(u, self.col_idx) * self.col_val, dim=-1)
 
     def sqAv(self, d: torch.Tensor) -> torch.Tensor:
         """[..., n_pad] -> [..., m_pad]: (A∘A) @ d, the Jacobi diagonal of
-        A diag(d) A^T."""
-        return torch.sum(
-            self._gather(d, self.row_idx) * (self.row_val * self.row_val), dim=-1
-        )
+        A diag(d) A^T (the span ``ell.sqAv``)."""
+        with span("ell.sqAv"):
+            return torch.sum(
+                self._gather(d, self.row_idx) * (self.row_val * self.row_val), dim=-1
+            )
 
     def todense(self, dtype=None) -> torch.Tensor:
         """Scatter to a dense [m_pad, n_pad] tensor.  With dtype=float32 this
         is how the ELL operator feeds the f32 Gram factor: a transient dense
         f32 matrix, while every f64 product stays matrix-free.  Slots add up
-        (pad slots add 0 at column 0)."""
+        (pad slots add 0 at column 0; the span ``ell.todense``)."""
         dtype = dtype or self.row_val.dtype
-        out = torch.zeros((self.m_pad, self.n_pad), dtype=dtype, device=self.device)
-        rows = torch.arange(self.m_pad, device=self.device)[:, None].expand(self.row_idx.shape)
-        return out.index_put_(
-            (rows, self.row_idx.long()), self.row_val.to(dtype), accumulate=True
-        )
+        with span("ell.todense"):
+            out = torch.zeros((self.m_pad, self.n_pad), dtype=dtype, device=self.device)
+            rows = torch.arange(self.m_pad, device=self.device)[:, None].expand(self.row_idx.shape)
+            return out.index_put_(
+                (rows, self.row_idx.long()), self.row_val.to(dtype), accumulate=True
+            )
 
 
 def _round_up(x: int, m: int) -> int:

@@ -41,6 +41,7 @@ import threading
 import torch
 
 from sypha_tpu_torch.ops._build import load_library
+from sypha_tpu_torch.utils.telemetry import span
 
 # the kernel's lane axis is gridDim.y (G L lanes in the grouped form)
 _MAX_LANES = 65535
@@ -69,10 +70,11 @@ def gram_reference(A32: torch.Tensor, w: torch.Tensor, *, a_bf16_exact: bool | N
 
 def bf16_exact(A32: torch.Tensor) -> bool:
     """Whether every entry of A32 equals its bf16 rounding, so that K1 may
-    take its three-product path: one device reduction and one host read.
-    The IPMs decide it once per solve, where they make A in the factor
-    dtype."""
-    return bool(torch.equal(A32, A32.to(torch.bfloat16).to(A32.dtype)))
+    take its three-product path: one device reduction and one host read
+    (the span ``k1.sync``).  The IPMs decide it once per solve, where they
+    make A in the factor dtype."""
+    with span("k1.sync"):
+        return bool(torch.equal(A32, A32.to(torch.bfloat16).to(A32.dtype)))
 
 
 def _plan(B: int, m: int, n: int, sms: int) -> int:
@@ -158,21 +160,23 @@ def gram(A32: torch.Tensor, w: torch.Tensor, *, a_bf16_exact: bool | None = None
     and ``launches_grouped`` those in the per-lane and grouped forms,
     ``launches_bf16x3`` those on the three-product path and
     ``launches_split_k`` those with the k range cut, exactly under host
-    threads.  CPU tensors go through ``gram_reference``.
+    threads.  CPU tensors go through ``gram_reference``.  A call is the
+    span ``k1.gram``.
     """
     _check(A32, w)
-    if A32.device.type == "cpu":
-        return gram_reference(A32, w)
-    if A32.device.type != "cuda":
-        raise ValueError(f"gram runs on cuda or cpu tensors, not {A32.device}")
-    B = w.shape[:-1].numel()
-    if B > _MAX_LANES:
-        raise ValueError(f"gram takes at most {_MAX_LANES} lanes, got {B}")
-    if a_bf16_exact is None:
-        a_bf16_exact = bf16_exact(A32)
-    device = A32.device.index if A32.device.index is not None else torch.cuda.current_device()
-    m, n = A32.shape[-2:]
-    return _launch(A32, w, bool(a_bf16_exact), _plan(B, m, n, _sm_count(device)))
+    with span("k1.gram"):
+        if A32.device.type == "cpu":
+            return gram_reference(A32, w)
+        if A32.device.type != "cuda":
+            raise ValueError(f"gram runs on cuda or cpu tensors, not {A32.device}")
+        B = w.shape[:-1].numel()
+        if B > _MAX_LANES:
+            raise ValueError(f"gram takes at most {_MAX_LANES} lanes, got {B}")
+        if a_bf16_exact is None:
+            a_bf16_exact = bf16_exact(A32)
+        device = A32.device.index if A32.device.index is not None else torch.cuda.current_device()
+        m, n = A32.shape[-2:]
+        return _launch(A32, w, bool(a_bf16_exact), _plan(B, m, n, _sm_count(device)))
 
 
 def _launch(A32: torch.Tensor, w: torch.Tensor, exact: bool, splits: int) -> torch.Tensor:

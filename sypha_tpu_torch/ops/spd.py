@@ -27,6 +27,7 @@ import torch
 
 from sypha_tpu_torch.ops.gram import gram
 from sypha_tpu_torch.ops.linalg import block_chol_inverse
+from sypha_tpu_torch.utils.telemetry import span
 
 _count_lock = threading.Lock()
 
@@ -167,12 +168,20 @@ def pcg_solve(
       x, r, p and rz stay as they were.  Every group that still steps has
       taken k steps, so one count serves them all.
 
-    In eager PyTorch the loop's test is one device-to-host sync per step;
-    ``pcg_solve.steps`` counts the steps taken, over all calls (exactly under
-    host threads).  ``agree`` turns the local "any lane" flag into the host's
-    decision; tensor parallelism passes one that reduces it over the ranks,
-    so that every rank takes the same number of steps.
+    In eager PyTorch the loop's test is one device-to-host sync per step,
+    and one more where the loop ends before ``max_steps``;
+    ``pcg_solve.steps`` counts the steps taken and ``pcg_solve.syncs`` the
+    tests made, over all calls (exactly under host threads).  A call is the
+    span ``pcg.solve``, each test the span ``pcg.sync``.  ``agree`` turns
+    the local "any lane" flag into the host's decision; tensor parallelism
+    passes one that reduces it over the ranks, so that every rank takes the
+    same number of steps.
     """
+    with span("pcg.solve"):
+        return _pcg_loop(precond, matvec, f, tol, max_steps, agree, per_lane, per_group)
+
+
+def _pcg_loop(precond, matvec, f, tol, max_steps, agree, per_lane, per_group):
     norm_f = torch.linalg.vector_norm(f, dim=-1, keepdim=True)
     thresh = tol * torch.clamp(norm_f, min=1e-300)
 
@@ -197,8 +206,13 @@ def pcg_solve(
         if isinstance(per_lane, torch.Tensor):
             active = active & per_lane[..., None]
 
-    k = 0
-    while k < max_steps and agree((above(r) if active is None else active).any()):
+    k = syncs = 0
+    while k < max_steps:
+        with span("pcg.sync"):
+            go = agree((above(r) if active is None else active).any())
+        syncs += 1
+        if not go:
+            break
         Ap = matvec(p)
         pAp = torch.sum(p * Ap, dim=-1, keepdim=True)
         ok = pAp > 0.0
@@ -223,11 +237,13 @@ def pcg_solve(
         k += 1
     with _count_lock:
         pcg_solve.steps += k
+        pcg_solve.syncs += syncs
     rel = torch.linalg.vector_norm(r, dim=-1) / torch.clamp(norm_f[..., 0], min=1e-300)
     return x, rel
 
 
 pcg_solve.steps = 0
+pcg_solve.syncs = 0
 
 
 def normal_eq_solve(

@@ -5,6 +5,7 @@ numbers, run in process with ``--device cpu``."""
 import contextlib
 import dataclasses
 import io
+import json
 import pathlib
 import subprocess
 import sys
@@ -106,6 +107,13 @@ def test_cli_profile_dir_writes_a_trace(tmp_path):
                                "--disable-bnb", "--profile-dir", str(trace)])
     assert rc == 0 and "PRIMAL" in out
     assert list(trace.iterdir()), "no trace file written"
+    # beside the trace, the solver's spans and counters over the solve
+    summary = json.loads((trace / "spans.json").read_text())
+    spans, counters = summary["spans"], summary["counters"]
+    assert spans["ipm.solve"]["count"] == 1
+    assert spans["ipm.iteration"]["count"] == counters["mehrotra_solve.iterations"] > 0
+    assert spans["pcg.sync"]["count"] == counters["pcg_solve.syncs"] > 0
+    assert 0.0 <= spans["ipm.solve"]["self_s"] <= spans["ipm.solve"]["total_s"]
 
 
 def test_module_help_runs():
