@@ -2204,7 +2204,7 @@ def main() -> int:
     )
     print(
         f"[slice A] gram.launches={launches_a} ipm_iterations={int(iters_a.max())} "
-        f"cg_steps={cg_steps_a} (host syncs: one per IPM iteration and per CG step)"
+        f"cg_steps={cg_steps_a} (host syncs: one per IPM iteration and per read of the PCG's flag)"
     )
     print(
         f"[slice A] warm solve {solve_s:.4f} s = {128 / solve_s:.2f} solves/s on {card}"

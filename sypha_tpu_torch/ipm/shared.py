@@ -17,8 +17,10 @@ Per IPM iteration the dense-factor strategy forms the f32 normal matrix with
 the Gram kernel (ops.gram), factors it (ops.linalg), and solves the
 predictor and corrector Newton systems with f64 flexible PCG preconditioned
 by that factor (ops.spd).  The loop runs eagerly: the test that any lane is
-still RUNNING is one device-to-host sync per iteration, as the test in the
-PCG is one per CG step.
+still RUNNING is one device-to-host sync per iteration.  The PCG runs in
+chunks of gated steps, with one read of a device flag per chunk, as CUDA
+graphs on a card (``ops.spd.normal_pcg``); under tensor parallelism and in
+the CG strategy its test is one sync per CG step.
 
 The shared A is a dense f64 tensor or a padded-ELL operator
 (ops.ell.EllMatrix, from ``make_shared_batch_sparse`` / ``_auto``).  With
@@ -68,9 +70,16 @@ from sypha_tpu_torch.core.device import resolve_device
 from sypha_tpu_torch.core.problem import PaddedLp
 from sypha_tpu_torch.core.status import IpmStatus
 from sypha_tpu_torch.io.standard_form import bucket_dims, pad_lp, pad_standard_form_ell
-from sypha_tpu_torch.ops.ell import EllMatrix
+from sypha_tpu_torch.ops.ell import EllMatrix, products
 from sypha_tpu_torch.ops.gram import bf16_exact, gram
-from sypha_tpu_torch.ops.spd import NormalEqFactor, _apply_normal_precond, factor_gram, pcg_solve
+from sypha_tpu_torch.ops.spd import (
+    NormalEqFactor,
+    PcgChunks,
+    _apply_normal_precond,
+    factor_gram,
+    normal_pcg,
+    pcg_solve,
+)
 from sypha_tpu_torch.utils.telemetry import span
 
 _count_lock = threading.Lock()
@@ -141,22 +150,6 @@ class SharedLpBatch:
     @property
     def is_grouped(self) -> bool:
         return not self.is_sparse and self.A.ndim == 3
-
-
-def _A_products(A):
-    """(Av, ATu, sqAv) for a dense [m, n] A or an EllMatrix:
-    Av: [..., n] -> [..., m] = A @ v;  ATu: [..., m] -> [..., n] = A^T @ u;
-    sqAv: [..., n] -> [..., m] = (A∘A) @ d (the Jacobi-diagonal product).
-    A dense [G, m, n] A (a grouped batch) takes [G, L, ...] vectors, and the
-    products broadcast over the group axis."""
-    if isinstance(A, EllMatrix):
-        return A.Av, A.ATu, A.sqAv
-    A2 = A * A
-    return (
-        lambda v: v @ A.mT,
-        lambda u: u @ A,
-        lambda d: d @ A2.mT,
-    )
 
 
 def make_shared_batch(lp: PaddedLp, n_lanes: int) -> SharedLpBatch:
@@ -261,7 +254,7 @@ def fix_columns(batch: SharedLpBatch, fix0, fix1) -> SharedLpBatch:
     (tensors or numpy) of variables fixed to 0 / 1.  Fixing to 1 substitutes
     the column out: b -= A_j, offset += c_j.
     """
-    Av, _, _ = _A_products(batch.A)
+    Av, _, _ = products(batch.A)
     c0 = batch.c
     fix0 = torch.as_tensor(fix0, dtype=c0.dtype, device=c0.device)
     fix1 = torch.as_tensor(fix1, dtype=c0.dtype, device=c0.device)
@@ -343,10 +336,19 @@ def _precond(Linv, dinv, r):
     return _apply_normal_precond(NormalEqFactor(Linv=Linv, dinv=dinv), r)
 
 
-def _pcg(Linv, dinv, matvec, f, tol, max_steps: int, agree=bool, per_group=False):
-    """Flexible PCG preconditioned by the f32 Cholesky factor (ops.spd)."""
+def _pcg(Linv, dinv, A, d, row_pad, f, tol, max_steps: int, psum, agree, per_group, chunks):
+    """Flexible PCG on M = A diag(d) A^T + diag(row_pad), preconditioned by
+    the f32 Cholesky factor (ops.spd): on one device in chunks with one read
+    of a device flag per chunk (``normal_pcg``, CUDA graphs on a card, the
+    plan ``chunks``); under tensor parallelism (``chunks`` None) eagerly,
+    with a test per step that ``agree`` reduces over the ranks."""
+    if chunks is not None:
+        return normal_pcg(Linv, dinv, A, d, row_pad, f, tol, max_steps, chunks, per_group)
+    Av, ATu, _ = products(A)
     return pcg_solve(
-        lambda r: _precond(Linv, dinv, r), matvec, f, tol, max_steps, agree, per_group=per_group
+        lambda r: _precond(Linv, dinv, r),
+        lambda v: psum(Av(d * ATu(v))) + row_pad * v,
+        f, tol, max_steps, agree, per_group=per_group,
     )
 
 
@@ -388,15 +390,12 @@ def shared_initial_point(
     ``_shared_factor``)."""
     _check_group(batch, group)
     A, b, c, mask = batch.A, batch.b, batch.c, batch.col_mask
-    Av, ATu, sqAv = _A_products(A)
+    Av, ATu, sqAv = products(A)
     ft, ridge = _factor_params(opts)
     row_pad = batch.row_pad.unsqueeze(-2)  # [1, m], grouped [G, 1, m]
     row_reg = row_pad.expand(b.shape)
     psum, pmin, _, agree = _reducers(group)
     grouped = batch.is_grouped
-
-    def matvec(v):
-        return psum(Av(mask * ATu(v))) + row_pad * v
 
     if use_cg:
         diag = psum(sqAv(mask)) + row_reg
@@ -404,16 +403,19 @@ def shared_initial_point(
         def solve(f):
             return pcg_solve(
                 lambda r: r / torch.clamp(diag, min=1e-300),
-                matvec, f, 1e-12, opts.cg_max_iter, agree, per_group=grouped,
+                lambda v: psum(Av(mask * ATu(v))) + row_pad * v,
+                f, 1e-12, opts.cg_max_iter, agree, per_group=grouped,
             )[0]
     else:
         Linv, dinv = _shared_factor(
             A32, mask, row_reg, ft, ridge, opts.chol_leaf_size, group, a_bf16_exact
         )
+        chunks = PcgChunks() if group is None else None
 
         def solve(f):
             return _pcg(
-                Linv, dinv, matvec, f, 1e-12, opts.newton_max_steps, agree, per_group=grouped
+                Linv, dinv, A, mask, row_pad, f, 1e-12, opts.newton_max_steps, psum, agree,
+                grouped, chunks,
             )[0]
 
     vy = solve(b)
@@ -490,7 +492,7 @@ def mehrotra_solve_shared(
 def _solve_shared(batch, opts, x0, y0, s0, state0, iter_limit, group) -> IpmState:
     _check_group(batch, group)
     A, b, c, mask = batch.A, batch.b, batch.c, batch.col_mask
-    Av, ATu, sqAv = _A_products(A)
+    Av, ATu, sqAv = products(A)
     lanes, n_pad = c.shape[:-1], c.shape[-1]
     grouped = batch.is_grouped
     dev = c.device
@@ -514,6 +516,7 @@ def _solve_shared(batch, opts, x0, y0, s0, state0, iter_limit, group) -> IpmStat
     # row space reduces across the ranks; identity reducers without a group
     psum, pmin, world, agree = _reducers(group)
     n_total = n_pad * world
+    chunks = PcgChunks() if group is None else None  # the PCG's plan, over the solve
 
     norm_b = 1.0 + torch.linalg.vector_norm(b, dim=-1)
     norm_c = 1.0 + torch.sqrt(psum(torch.sum(c * c, dim=-1)))
@@ -587,9 +590,6 @@ def _solve_shared(batch, opts, x0, y0, s0, state0, iter_limit, group) -> IpmStat
         d2 = torch.clamp(x / s, opts.d2_min, opts.d2_max)
         d2_eff = d2 * mask
 
-        def matvec(v):
-            return psum(Av(d2_eff * ATu(v))) + row_pad * v
-
         if use_cg:
             # Jacobi-CG with the adaptive tolerance schedule per IPM iteration
             diag = psum(sqAv(d2_eff)) + row_reg
@@ -602,7 +602,8 @@ def _solve_shared(batch, opts, x0, y0, s0, state0, iter_limit, group) -> IpmStat
             def solve(f):
                 return pcg_solve(
                     lambda r: r / torch.clamp(diag, min=1e-300),
-                    matvec, f, cg_tol, opts.cg_max_iter, agree, per_group=grouped,
+                    lambda v: psum(Av(d2_eff * ATu(v))) + row_pad * v,
+                    f, cg_tol, opts.cg_max_iter, agree, per_group=grouped,
                 )
 
             solve_gate = torch.clamp(100.0 * cg_tol[..., 0], min=1e-3)
@@ -614,8 +615,8 @@ def _solve_shared(batch, opts, x0, y0, s0, state0, iter_limit, group) -> IpmStat
 
             def solve(f):
                 return _pcg(
-                    Linv_c, dinv_c, matvec, f, opts.newton_tol, opts.newton_max_steps,
-                    agree, per_group=grouped,
+                    Linv_c, dinv_c, A, d2_eff, row_pad, f, opts.newton_tol,
+                    opts.newton_max_steps, psum, agree, grouped, chunks,
                 )
 
             solve_gate = 1e-3

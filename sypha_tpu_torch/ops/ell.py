@@ -96,6 +96,22 @@ class EllMatrix:
             )
 
 
+def products(A):
+    """(Av, ATu, sqAv) for a shared A, a dense tensor or an EllMatrix:
+    Av: [..., n] -> [..., m] = A @ v;  ATu: [..., m] -> [..., n] = A^T @ u;
+    sqAv: [..., n] -> [..., m] = (A∘A) @ d (the Jacobi-diagonal product).
+    A dense [G, m, n] A (a grouped batch) takes [G, L, ...] vectors, and the
+    products broadcast over the group axis."""
+    if isinstance(A, EllMatrix):
+        return A.Av, A.ATu, A.sqAv
+    A2 = A * A
+    return (
+        lambda v: v @ A.mT,
+        lambda u: u @ A,
+        lambda d: d @ A2.mT,
+    )
+
+
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 

@@ -23,8 +23,9 @@ the span that encloses it in the same thread (-1 for none).  The log holds
 at most ``LOG_CAP`` spans; later ones are dropped and counted
 (``telemetry.spans_dropped`` in ``counters()``).  Spans named
 ``<layer>.sync`` enclose one device-to-host sync each: the IPM's loop test
-(``ipm.sync``), the PCG's (``pcg.sync``) and K1's exactness read
-(``k1.sync``).
+(``ipm.sync``), the PCG's (``pcg.sync``, one a read of the chunked loop's
+flag) and K1's exactness read (``k1.sync``).  ``pcg.capture`` holds the
+capture of a key's CUDA graphs of the PCG.
 
 The profiler records only the thread that started it: a thread that the
 solver starts (the B&B's closure worker) records into the log when its
@@ -313,6 +314,7 @@ def span_summary(log: Optional[list] = None, first: int = 0) -> dict:
 
 def counters() -> dict:
     """Every counter of the port, by dotted name: PCG steps and loop tests,
+    the chunked PCG's masked steps and its CUDA graphs captured and replayed,
     the IPMs' iterations and syncs, K1's launches by path, the B&B's node
     windows, the ELL operator cache, the spans dropped from the log."""
     from sypha_tpu_torch.io.standard_form import pad_standard_form_ell
@@ -323,7 +325,8 @@ def counters() -> dict:
     from sypha_tpu_torch.ops.spd import pcg_solve
 
     owners = {
-        "pcg_solve": (pcg_solve, ("steps", "syncs")),
+        "pcg_solve": (pcg_solve, ("steps", "syncs", "masked_steps", "graph_captures",
+                                  "graph_replays")),
         "mehrotra_solve_shared": (mehrotra_solve_shared, ("iterations", "syncs")),
         "mehrotra_solve": (mehrotra_solve, ("iterations", "syncs")),
         "gram": (gram, ("launches", "launches_per_lane", "launches_grouped",
