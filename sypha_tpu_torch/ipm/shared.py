@@ -484,6 +484,9 @@ def mehrotra_solve_shared(
     loop test.  ``mehrotra_solve_shared.iterations`` counts the steps and
     ``mehrotra_solve_shared.syncs`` the device-to-host syncs the call makes
     outside ``pcg_solve``: the loop tests and K1's exactness read.
+    ``mehrotra_solve_shared.solves_dense``, ``.solves_ell`` and
+    ``.solves_grouped`` count the calls by the operator they ran: a dense
+    A, an EllMatrix, a grouped dense batch.
     """
     with span("ipm.solve"):
         return _solve_shared(batch, opts, x0, y0, s0, state0, iter_limit, group)
@@ -764,9 +767,18 @@ def _solve_shared(batch, opts, x0, y0, s0, state0, iter_limit, group) -> IpmStat
     with _count_lock:
         mehrotra_solve_shared.iterations += iterations
         mehrotra_solve_shared.syncs += syncs
+        if batch.is_sparse:
+            mehrotra_solve_shared.solves_ell += 1
+        elif grouped:
+            mehrotra_solve_shared.solves_grouped += 1
+        else:
+            mehrotra_solve_shared.solves_dense += 1
     return st
 
 
 mehrotra_solve_shared.iterations = 0
 mehrotra_solve_shared.syncs = 0
+mehrotra_solve_shared.solves_dense = 0
+mehrotra_solve_shared.solves_ell = 0
+mehrotra_solve_shared.solves_grouped = 0
 

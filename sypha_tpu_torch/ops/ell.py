@@ -101,15 +101,29 @@ def products(A):
     Av: [..., n] -> [..., m] = A @ v;  ATu: [..., m] -> [..., n] = A^T @ u;
     sqAv: [..., n] -> [..., m] = (A∘A) @ d (the Jacobi-diagonal product).
     A dense [G, m, n] A (a grouped batch) takes [G, L, ...] vectors, and the
-    products broadcast over the group axis."""
+    products broadcast over the group axis.
+
+    The dense products are the spans ``dense.Av``, ``dense.ATu`` and
+    ``dense.sqAv``, the counterparts of ``ell.*``: the shared no-op while
+    nothing traces, and inside a CUDA graph's capture recorded once, when
+    the capture runs the Python, never on a replay."""
     if isinstance(A, EllMatrix):
         return A.Av, A.ATu, A.sqAv
     A2 = A * A
-    return (
-        lambda v: v @ A.mT,
-        lambda u: u @ A,
-        lambda d: d @ A2.mT,
-    )
+
+    def Av(v):
+        with span("dense.Av"):
+            return v @ A.mT
+
+    def ATu(u):
+        with span("dense.ATu"):
+            return u @ A
+
+    def sqAv(d):
+        with span("dense.sqAv"):
+            return d @ A2.mT
+
+    return Av, ATu, sqAv
 
 
 def _round_up(x: int, m: int) -> int:

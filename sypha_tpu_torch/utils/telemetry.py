@@ -8,7 +8,7 @@ package does.  ``profile_trace`` records a ``torch.profiler`` trace
 (viewable in TensorBoard or Perfetto) and, beside it, ``spans.json``.
 
 Spans.  ``span(name)`` marks a phase of the solver, named by its layer
-(``ipm.iteration``, ``pcg.solve``, ``k1.gram``, ``ell.Av``,
+(``ipm.iteration``, ``pcg.solve``, ``k1.gram``, ``ell.Av``, ``dense.Av``,
 ``bnb.precompile``, ``native.exact_cover``, ...).  It records only while
 tracing is on: while a ``torch.profiler`` session records the calling
 thread, or inside ``tracing()``.  Otherwise it returns one shared no-op
@@ -315,8 +315,9 @@ def span_summary(log: Optional[list] = None, first: int = 0) -> dict:
 def counters() -> dict:
     """Every counter of the port, by dotted name: PCG steps and loop tests,
     the chunked PCG's masked steps and its CUDA graphs captured and replayed,
-    the IPMs' iterations and syncs, K1's launches by path, the B&B's node
-    windows, the ELL operator cache, the spans dropped from the log."""
+    the IPMs' iterations and syncs, the shared IPM's solves by operator,
+    K1's launches by path, the B&B's node windows, the ELL operator cache,
+    the spans dropped from the log."""
     from sypha_tpu_torch.io.standard_form import pad_standard_form_ell
     from sypha_tpu_torch.ipm.dense import mehrotra_solve
     from sypha_tpu_torch.ipm.shared import mehrotra_solve_shared
@@ -327,7 +328,8 @@ def counters() -> dict:
     owners = {
         "pcg_solve": (pcg_solve, ("steps", "syncs", "masked_steps", "graph_captures",
                                   "graph_replays")),
-        "mehrotra_solve_shared": (mehrotra_solve_shared, ("iterations", "syncs")),
+        "mehrotra_solve_shared": (mehrotra_solve_shared, ("iterations", "syncs", "solves_dense",
+                                                          "solves_ell", "solves_grouped")),
         "mehrotra_solve": (mehrotra_solve, ("iterations", "syncs")),
         "gram": (gram, ("launches", "launches_per_lane", "launches_grouped",
                         "launches_bf16x3", "launches_split_k")),
