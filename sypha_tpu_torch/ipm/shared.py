@@ -20,7 +20,9 @@ by that factor (ops.spd).  The loop runs eagerly: the test that any lane is
 still RUNNING is one device-to-host sync per iteration.  The PCG runs in
 chunks of gated steps, with one read of a device flag per chunk, as CUDA
 graphs on a card (``ops.spd.normal_pcg``); under tensor parallelism and in
-the CG strategy its test is one sync per CG step.
+the CG strategy its test is one sync per CG step.  On a card the factor
+after the Gram is one CUDA graph too (``ops.spd.factor_gram``), except
+under tensor parallelism.
 
 The shared A is a dense f64 tensor or a padded-ELL operator
 (ops.ell.EllMatrix, from ``make_shared_batch_sparse`` / ``_auto``).  With
@@ -318,7 +320,9 @@ def _shared_factor(
     ``a_bf16_exact`` (decided once per solve) picks its three-product path.
     Under tensor parallelism (``group``) A32 and d2_eff are the rank's
     column slab, and the partial Grams sum over the ranks before the ridge
-    and the scaling.  The span ``ipm.factor``.
+    and the scaling.  On one device (no ``group``) the chain after the Gram
+    replays from a CUDA graph on a card (``factor_gram``); K1 stays an eager
+    launch before it.  The span ``ipm.factor``.
     """
     psum = _reducers(group)[0]
     with span("ipm.factor"):
@@ -328,7 +332,7 @@ def _shared_factor(
         else:
             Aw = (A32[:, None] if A32.ndim == 3 else A32[None]) * w[..., None, :]
             M = torch.einsum("...ik,...jk->...ij", Aw, Aw)
-        return factor_gram(psum(M), row_reg, ridge, leaf_size)
+        return factor_gram(psum(M), row_reg, ridge, leaf_size, graph=group is None)
 
 
 def _precond(Linv, dinv, r):

@@ -22,6 +22,8 @@ graphs per key (the set-up and a chunk) replayed from static buffers.
 
 ``normal_eq_factor`` in f32 forms its Gram matrix with the Gram kernel
 (ops.gram), one matrix per lane or one shared by every lane.
+``factor_gram`` factors a Gram matrix; for the shared IPM on one card it
+replays the chain as one CUDA graph per key.
 """
 
 from __future__ import annotations
@@ -91,9 +93,8 @@ class NormalEqFactor:
     dinv: torch.Tensor
 
 
-def factor_gram(M: torch.Tensor, row_reg: torch.Tensor, ridge: float, leaf_size: int):
-    """(Linv, dinv) of a batched Gram matrix M [B, m, m] in its own dtype:
-    add diag(row_reg), equilibrate by 1/sqrt(diag), add the ridge, factor."""
+def _factor_chain(M: torch.Tensor, row_reg: torch.Tensor, ridge: float, leaf_size: int):
+    """``factor_gram``'s mathematics, run eagerly and captured alike."""
     ft = M.dtype
     m = M.shape[-1]
     M = M + torch.diag_embed(row_reg.to(ft))
@@ -102,6 +103,28 @@ def factor_gram(M: torch.Tensor, row_reg: torch.Tensor, ridge: float, leaf_size:
     Ms = M * dinv[..., None, :] * dinv[..., :, None]
     Ms = Ms + ridge * torch.eye(m, dtype=ft, device=M.device)
     return block_chol_inverse(Ms, leaf_size=leaf_size), dinv
+
+
+def factor_gram(M: torch.Tensor, row_reg: torch.Tensor, ridge: float, leaf_size: int,
+                graph: bool = False):
+    """(Linv, dinv) of a batched Gram matrix M [..., m, m] in its own dtype:
+    add diag(row_reg), equilibrate by 1/sqrt(diag), add the ridge, factor.
+
+    With ``graph`` on a CUDA device (the shared IPM on one device) the chain
+    is replayed from one CUDA graph per key (``_FactorGraph``), bit for bit
+    the eager chain's; elsewhere it runs eagerly.  ``factor_gram.calls``
+    counts the calls, ``.graph_captures`` and ``.graph_replays`` the
+    graphs' captures and replays (exactly under host threads)."""
+    with _count_lock:
+        factor_gram.calls += 1
+    if graph and M.device.type == "cuda":
+        return _graphed_factor(M, row_reg, ridge, leaf_size)
+    return _factor_chain(M, row_reg, ridge, leaf_size)
+
+
+factor_gram.calls = 0
+factor_gram.graph_captures = 0
+factor_gram.graph_replays = 0
 
 
 def normal_eq_factor(
@@ -445,12 +468,53 @@ def normal_pcg(Linv, dinv, A, d, row_pad, f, tol: float, max_steps: int, plan: P
 
 
 # ---------------------------------------------------------------------------
-# CUDA graphs of the chunked loop
+# CUDA graphs of the chunked loop and of the factor
 # ---------------------------------------------------------------------------
 
-GRAPH_KEYS = 24  # keys the graph cache holds; the least recently used goes
+GRAPH_KEYS = 24  # keys each graph cache holds; the least recently used goes
 _graphs: "OrderedDict[tuple, _PcgGraphs]" = OrderedDict()
+_factor_graphs: "OrderedDict[tuple, _FactorGraph]" = OrderedDict()
 _graphs_lock = threading.Lock()
+# one capture at a time in the process: each synchronises the device and
+# empties the allocator's cache as it begins
+_capture_lock = threading.Lock()
+
+
+def _cached(cache: OrderedDict, key, make):
+    """The entry of ``key`` in the graph cache ``cache``, made by ``make()``
+    where there is none; beyond ``GRAPH_KEYS`` the least recently used goes."""
+    with _graphs_lock:
+        g = cache.get(key)
+        if g is None:
+            g = cache[key] = make()
+            while len(cache) > GRAPH_KEYS:
+                cache.popitem(last=False)
+        else:
+            cache.move_to_end(key)
+    return g
+
+
+def _capture(fns, device: torch.device):
+    """Warm ``fns`` up on a side stream (the libraries' handles and
+    workspaces), then capture each as a CUDA graph, all in one private
+    memory pool.  Returns (graphs, what each captured call returned)."""
+    with _capture_lock:
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            for fn in fns:
+                fn()
+        torch.cuda.current_stream(device).wait_stream(side)
+        pool = torch.cuda.graph_pool_handle()
+        graphs, outs = [], []
+        for fn in fns:
+            g = torch.cuda.CUDAGraph()
+            # thread_local: other threads (shard threads, the B&B's closure
+            # worker) may use the device while this one captures
+            with torch.cuda.graph(g, pool=pool, stream=side, capture_error_mode="thread_local"):
+                outs.append(fn())
+            graphs.append(g)
+        return graphs, outs
 
 
 def _flat(inputs):
@@ -489,31 +553,15 @@ class _PcgGraphs:
         self.state.kmax.fill_(max_steps)
 
     def capture(self, size: int):
-        """Warm up on a side stream (the libraries' handles and workspaces),
-        then capture the set-up and the chunk from the loaded inputs."""
+        """Capture the set-up and the chunk from the loaded inputs."""
         Linv, dinv, A, d, row_pad, f = _unflat(self.bufs, self.ell)
         precond, matvec = _normal_ops(Linv, dinv, A, d, row_pad)
         s = self.state
-        fns = (
-            lambda: _chunked_setup(precond, matvec, f, self.tol, s),
-            lambda: _chunk(precond, matvec, s, size),
+        self.graphs, _ = _capture(
+            (lambda: _chunked_setup(precond, matvec, f, self.tol, s),
+             lambda: _chunk(precond, matvec, s, size)),
+            f.device,
         )
-        side = torch.cuda.Stream(f.device)
-        side.wait_stream(torch.cuda.current_stream(f.device))
-        with torch.cuda.stream(side):
-            for fn in fns:
-                fn()
-        torch.cuda.current_stream(f.device).wait_stream(side)
-        pool = torch.cuda.graph_pool_handle()
-        graphs = []
-        for fn in fns:
-            g = torch.cuda.CUDAGraph()
-            # thread_local: other threads (shard threads, the B&B's closure
-            # worker) may use the device while this one captures
-            with torch.cuda.graph(g, pool=pool, stream=side, capture_error_mode="thread_local"):
-                fn()
-            graphs.append(g)
-        self.graphs = graphs
 
 
 def _graphed_pcg(inputs, tol: float, max_steps: int, plan: PcgChunks, per_group: bool):
@@ -522,14 +570,7 @@ def _graphed_pcg(inputs, tol: float, max_steps: int, plan: PcgChunks, per_group:
         inputs[-1].device, isinstance(inputs[2], EllMatrix), per_group, size,
         tuple((tuple(t.shape), t.dtype) for t in _flat(inputs)),
     )
-    with _graphs_lock:
-        g = _graphs.get(key)
-        if g is None:
-            g = _graphs[key] = _PcgGraphs(inputs, per_group)
-            while len(_graphs) > GRAPH_KEYS:
-                _graphs.popitem(last=False)
-        else:
-            _graphs.move_to_end(key)
+    g = _cached(_graphs, key, lambda: _PcgGraphs(inputs, per_group))
     with g.lock:
         g.load(inputs, tol, max_steps)
         if g.graphs is None:
@@ -543,6 +584,50 @@ def _graphed_pcg(inputs, tol: float, max_steps: int, plan: PcgChunks, per_group:
     with _count_lock:
         pcg_solve.graph_replays += 1 + chunks
     return x, rel
+
+
+class _FactorGraph:
+    """The CUDA graph of ``factor_gram``'s chain for one key: static copies
+    of M and row_reg, and one graph in a private memory pool that reads
+    them and writes the static (Linv, dinv).  ``lock`` serialises the calls
+    of the key from the copy-in to the copy-out."""
+
+    def __init__(self, M: torch.Tensor, row_reg: torch.Tensor):
+        self.M = torch.empty(M.shape, dtype=M.dtype, device=M.device)
+        self.row_reg = torch.empty(row_reg.shape, dtype=row_reg.dtype, device=row_reg.device)
+        self.graph = self.out = None
+        self.lock = threading.Lock()
+
+    def load(self, M: torch.Tensor, row_reg: torch.Tensor):
+        self.M.copy_(M)
+        self.row_reg.copy_(row_reg)
+
+    def capture(self, ridge: float, leaf_size: int):
+        (self.graph,), (self.out,) = _capture(
+            (lambda: _factor_chain(self.M, self.row_reg, ridge, leaf_size),), self.M.device
+        )
+
+
+def _graphed_factor(M, row_reg, ridge: float, leaf_size: int):
+    """``factor_gram`` replayed from its key's graph: the span
+    ``factor.capture`` holds a key's first capture, ``factor.replay`` the
+    copy-in, the replay and the copy-out of (Linv, dinv)."""
+    key = (M.device, M.dtype, tuple(M.shape), row_reg.dtype, tuple(row_reg.shape), leaf_size, ridge)
+    g = _cached(_factor_graphs, key, lambda: _FactorGraph(M, row_reg))
+    with g.lock:
+        if g.graph is None:
+            with span("factor.capture"):
+                g.load(M, row_reg)
+                g.capture(ridge, leaf_size)
+            with _count_lock:
+                factor_gram.graph_captures += 1
+        with span("factor.replay"):
+            g.load(M, row_reg)
+            g.graph.replay()
+            Linv, dinv = (t.clone() for t in g.out)
+    with _count_lock:
+        factor_gram.graph_replays += 1
+    return Linv, dinv
 
 
 def normal_eq_solve(

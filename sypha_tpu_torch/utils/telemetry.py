@@ -25,7 +25,9 @@ at most ``LOG_CAP`` spans; later ones are dropped and counted
 ``<layer>.sync`` enclose one device-to-host sync each: the IPM's loop test
 (``ipm.sync``), the PCG's (``pcg.sync``, one a read of the chunked loop's
 flag) and K1's exactness read (``k1.sync``).  ``pcg.capture`` holds the
-capture of a key's CUDA graphs of the PCG.
+capture of a key's CUDA graphs of the PCG, ``factor.capture`` that of a
+key's CUDA graph of the factor, and ``factor.replay`` a replay of it with
+its copies in and out.
 
 The profiler records only the thread that started it: a thread that the
 solver starts (the B&B's closure worker) records into the log when its
@@ -315,7 +317,8 @@ def span_summary(log: Optional[list] = None, first: int = 0) -> dict:
 def counters() -> dict:
     """Every counter of the port, by dotted name: PCG steps and loop tests,
     the chunked PCG's masked steps and its CUDA graphs captured and replayed,
-    the IPMs' iterations and syncs, the shared IPM's solves by operator,
+    the factor's calls and its CUDA graphs captured and replayed, the IPMs'
+    iterations and syncs, the shared IPM's solves by operator,
     K1's launches by path, the B&B's node windows, the ELL operator cache,
     the spans dropped from the log."""
     from sypha_tpu_torch.io.standard_form import pad_standard_form_ell
@@ -323,11 +326,12 @@ def counters() -> dict:
     from sypha_tpu_torch.ipm.shared import mehrotra_solve_shared
     from sypha_tpu_torch.milp.bnb import _NodeLpSolver
     from sypha_tpu_torch.ops.gram import gram
-    from sypha_tpu_torch.ops.spd import pcg_solve
+    from sypha_tpu_torch.ops.spd import factor_gram, pcg_solve
 
     owners = {
         "pcg_solve": (pcg_solve, ("steps", "syncs", "masked_steps", "graph_captures",
                                   "graph_replays")),
+        "factor_gram": (factor_gram, ("calls", "graph_captures", "graph_replays")),
         "mehrotra_solve_shared": (mehrotra_solve_shared, ("iterations", "syncs", "solves_dense",
                                                           "solves_ell", "solves_grouped")),
         "mehrotra_solve": (mehrotra_solve, ("iterations", "syncs")),
