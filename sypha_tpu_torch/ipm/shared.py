@@ -17,12 +17,13 @@ Per IPM iteration the dense-factor strategy forms the f32 normal matrix with
 the Gram kernel (ops.gram), factors it (ops.linalg), and solves the
 predictor and corrector Newton systems with f64 flexible PCG preconditioned
 by that factor (ops.spd).  The loop runs eagerly: the test that any lane is
-still RUNNING is one device-to-host sync per iteration.  The PCG runs in
-chunks of gated steps, with one read of a device flag per chunk, as CUDA
-graphs on a card (``ops.spd.normal_pcg``); under tensor parallelism and in
-the CG strategy its test is one sync per CG step.  On a card the factor
-after the Gram is one CUDA graph too (``ops.spd.factor_gram``), except
-under tensor parallelism.
+still RUNNING is one device-to-host sync per iteration.  The PCG's test
+is a flag on the device (``ops.spd.pcg_solve``), read before every step
+under tensor parallelism and in the CG strategy.  On one device the Newton
+solve gates its steps on the flag and batches its first read
+(``PcgChunks``) and, on a card, replays CUDA graphs
+(``ops.spd.normal_pcg``), as does the factor after the Gram
+(``ops.spd.factor_gram``).
 
 The shared A is a dense f64 tensor or a padded-ELL operator
 (ops.ell.EllMatrix, from ``make_shared_batch_sparse`` / ``_auto``).  With
@@ -74,14 +75,7 @@ from sypha_tpu_torch.core.status import IpmStatus
 from sypha_tpu_torch.io.standard_form import bucket_dims, pad_lp, pad_standard_form_ell
 from sypha_tpu_torch.ops.ell import EllMatrix, products
 from sypha_tpu_torch.ops.gram import bf16_exact, gram
-from sypha_tpu_torch.ops.spd import (
-    NormalEqFactor,
-    PcgChunks,
-    _apply_normal_precond,
-    factor_gram,
-    normal_pcg,
-    pcg_solve,
-)
+from sypha_tpu_torch.ops.spd import PcgChunks, factor_gram, normal_pcg, pcg_solve
 from sypha_tpu_torch.utils.telemetry import span
 
 _count_lock = threading.Lock()
@@ -277,14 +271,18 @@ def fix_columns(batch: SharedLpBatch, fix0, fix1) -> SharedLpBatch:
 
 
 def _reducers(group):
-    """Cross-rank reducers of tensor parallelism: (psum, pmin, world size,
-    agree).  ``psum``/``pmin`` all-reduce a tensor (SUM / MIN) over ``group``
-    in place and return it; every call site passes a temporary.  ``agree``
-    reduces a local boolean flag (MAX) and returns the host's bool.  With
-    ``group`` None (one device, or lane sharding) they are the identity and
-    ``bool``."""
+    """Cross-rank reducers of tensor parallelism, and the solve's PCG plan:
+    (psum, pmin, world size, agree, plan).  ``psum``/``pmin`` all-reduce a
+    tensor (SUM / MIN) over ``group`` in place and return it; every call
+    site passes a temporary.  ``agree`` reduces a local boolean flag (MAX)
+    and returns the host's bool.  With ``group`` None (one device, or lane
+    sharding) they are the identity and ``bool``.  ``plan`` is a new
+    ``PcgChunks`` without a group and None under tensor parallelism, whose
+    collectives and host agreement sit inside the factor and the PCG: the
+    solve's factor and Newton solves replay CUDA graphs on a card where
+    there is a plan (``factor_gram``, ``normal_pcg``)."""
     if group is None:
-        return (lambda v: v), (lambda v: v), 1, bool
+        return (lambda v: v), (lambda v: v), 1, bool, PcgChunks()
 
     def reducer(op):
         def reduce(v):
@@ -304,6 +302,7 @@ def _reducers(group):
         reducer(dist.ReduceOp.MIN),
         dist.get_world_size(group),
         agree,
+        None,
     )
 
 
@@ -324,7 +323,7 @@ def _shared_factor(
     replays from a CUDA graph on a card (``factor_gram``); K1 stays an eager
     launch before it.  The span ``ipm.factor``.
     """
-    psum = _reducers(group)[0]
+    psum, *_, plan = _reducers(group)
     with span("ipm.factor"):
         w = torch.sqrt(d2_eff).to(ft)
         if ft == torch.float32:
@@ -332,28 +331,7 @@ def _shared_factor(
         else:
             Aw = (A32[:, None] if A32.ndim == 3 else A32[None]) * w[..., None, :]
             M = torch.einsum("...ik,...jk->...ij", Aw, Aw)
-        return factor_gram(psum(M), row_reg, ridge, leaf_size, graph=group is None)
-
-
-def _precond(Linv, dinv, r):
-    """P r = Dg L^-T L^-1 Dg r per lane (batched GEMVs in the factor dtype)."""
-    return _apply_normal_precond(NormalEqFactor(Linv=Linv, dinv=dinv), r)
-
-
-def _pcg(Linv, dinv, A, d, row_pad, f, tol, max_steps: int, psum, agree, per_group, chunks):
-    """Flexible PCG on M = A diag(d) A^T + diag(row_pad), preconditioned by
-    the f32 Cholesky factor (ops.spd): on one device in chunks with one read
-    of a device flag per chunk (``normal_pcg``, CUDA graphs on a card, the
-    plan ``chunks``); under tensor parallelism (``chunks`` None) eagerly,
-    with a test per step that ``agree`` reduces over the ranks."""
-    if chunks is not None:
-        return normal_pcg(Linv, dinv, A, d, row_pad, f, tol, max_steps, chunks, per_group)
-    Av, ATu, _ = products(A)
-    return pcg_solve(
-        lambda r: _precond(Linv, dinv, r),
-        lambda v: psum(Av(d * ATu(v))) + row_pad * v,
-        f, tol, max_steps, agree, per_group=per_group,
-    )
+        return factor_gram(psum(M), row_reg, ridge, leaf_size, graph=plan is not None)
 
 
 def _check_group(batch: SharedLpBatch, group):
@@ -398,7 +376,7 @@ def shared_initial_point(
     ft, ridge = _factor_params(opts)
     row_pad = batch.row_pad.unsqueeze(-2)  # [1, m], grouped [G, 1, m]
     row_reg = row_pad.expand(b.shape)
-    psum, pmin, _, agree = _reducers(group)
+    psum, pmin, _, agree, plan = _reducers(group)
     grouped = batch.is_grouped
 
     if use_cg:
@@ -414,12 +392,11 @@ def shared_initial_point(
         Linv, dinv = _shared_factor(
             A32, mask, row_reg, ft, ridge, opts.chol_leaf_size, group, a_bf16_exact
         )
-        chunks = PcgChunks() if group is None else None
 
         def solve(f):
-            return _pcg(
-                Linv, dinv, A, mask, row_pad, f, 1e-12, opts.newton_max_steps, psum, agree,
-                grouped, chunks,
+            return normal_pcg(
+                Linv, dinv, A, mask, row_pad, f, 1e-12, opts.newton_max_steps, plan, grouped,
+                psum, agree,
             )[0]
 
     vy = solve(b)
@@ -521,9 +498,8 @@ def _solve_shared(batch, opts, x0, y0, s0, state0, iter_limit, group) -> IpmStat
     RUNNING = int(IpmStatus.RUNNING)
     # tensor parallelism: every sum/min over n and every A-product onto the
     # row space reduces across the ranks; identity reducers without a group
-    psum, pmin, world, agree = _reducers(group)
+    psum, pmin, world, agree, plan = _reducers(group)
     n_total = n_pad * world
-    chunks = PcgChunks() if group is None else None  # the PCG's plan, over the solve
 
     norm_b = 1.0 + torch.linalg.vector_norm(b, dim=-1)
     norm_c = 1.0 + torch.sqrt(psum(torch.sum(c * c, dim=-1)))
@@ -621,9 +597,9 @@ def _solve_shared(batch, opts, x0, y0, s0, state0, iter_limit, group) -> IpmStat
                 )
 
             def solve(f):
-                return _pcg(
+                return normal_pcg(
                     Linv_c, dinv_c, A, d2_eff, row_pad, f, opts.newton_tol,
-                    opts.newton_max_steps, psum, agree, grouped, chunks,
+                    opts.newton_max_steps, plan, grouped, psum, agree,
                 )
 
             solve_gate = 1e-3

@@ -11,19 +11,18 @@ Everything is batch-first ([..., m, m] / [..., m]).  ``pcg_solve`` (and
 batch-wide, as the JAX package's loop runs on a batched call (the
 shared-matrix IPM), per lane, as ``jax.vmap`` of that loop runs (the
 per-lane IPM of ipm.dense), and per instance group, as ``jax.vmap`` over
-groups of a batch-wide loop runs (the grouped shared-matrix IPM).  Its test
-is one device-to-host sync per step.
-
-``pcg_chunked`` runs the batch-wide and the per-group loop in chunks of
-steps gated on a flag that stays on the device, with one read of the flag
-per chunk, and gives ``pcg_solve``'s answer bit for bit.  ``normal_pcg``,
-the shared IPM's Newton solve on one device, runs it, on a card as two CUDA
-graphs per key (the set-up and a chunk) replayed from static buffers.
+groups of a batch-wide loop runs (the grouped shared-matrix IPM).  Its
+test is a flag that stays on the device, which the host reads before every
+step or, with a ``PcgChunks`` plan that gates the steps on the flag, after
+a first batch of steps.  ``normal_pcg``, the shared IPM's Newton solve,
+runs it, on a card without a process group as two CUDA graphs per key (the
+set-up and a gated step) replayed from static buffers.
 
 ``normal_eq_factor`` in f32 forms its Gram matrix with the Gram kernel
 (ops.gram), one matrix per lane or one shared by every lane.
 ``factor_gram`` factors a Gram matrix; for the shared IPM on one card it
-replays the chain as one CUDA graph per key.
+replays the chain as one CUDA graph per key.  One class (``_Graphs``)
+holds the graphs of a key of either.
 """
 
 from __future__ import annotations
@@ -31,6 +30,7 @@ from __future__ import annotations
 import threading
 from collections import OrderedDict
 from dataclasses import dataclass
+from functools import partial
 from typing import Callable
 
 import torch
@@ -110,14 +110,15 @@ def factor_gram(M: torch.Tensor, row_reg: torch.Tensor, ridge: float, leaf_size:
     """(Linv, dinv) of a batched Gram matrix M [..., m, m] in its own dtype:
     add diag(row_reg), equilibrate by 1/sqrt(diag), add the ridge, factor.
 
-    With ``graph`` on a CUDA device (the shared IPM on one device) the chain
-    is replayed from one CUDA graph per key (``_FactorGraph``), bit for bit
-    the eager chain's; elsewhere it runs eagerly.  ``factor_gram.calls``
-    counts the calls, ``.graph_captures`` and ``.graph_replays`` the
-    graphs' captures and replays (exactly under host threads)."""
+    Where ``graph`` allows it (the shared IPM on one device) and M is on a
+    CUDA device (``_graphed``), the chain is replayed from one CUDA graph
+    per key, bit for bit the eager chain's; elsewhere it runs eagerly.
+    ``factor_gram.calls`` counts the calls, ``.graph_captures`` and
+    ``.graph_replays`` the graphs' captures and replays (exactly under host
+    threads)."""
     with _count_lock:
         factor_gram.calls += 1
-    if graph and M.device.type == "cuda":
+    if _graphed(graph, M):
         return _graphed_factor(M, row_reg, ridge, leaf_size)
     return _factor_chain(M, row_reg, ridge, leaf_size)
 
@@ -174,6 +175,7 @@ def pcg_solve(
     agree: Callable[[torch.Tensor], bool] = bool,
     per_lane: bool | torch.Tensor = False,
     per_group: bool = False,
+    plan: PcgChunks | None = None,
 ):
     """Flexible (Polak-Ribiere) PCG in f.dtype, matrix-free and batch-first.
 
@@ -200,17 +202,32 @@ def pcg_solve(
       x, r, p and rz stay as they were.  Every group that still steps has
       taken k steps, so one count serves them all.
 
-    In eager PyTorch the loop's test is one device-to-host sync per step,
-    and one more where the loop ends before ``max_steps``;
-    ``pcg_solve.steps`` counts the steps taken and ``pcg_solve.syncs`` the
-    tests made, over all calls (exactly under host threads).  A call is the
-    span ``pcg.solve``, each test the span ``pcg.sync``.  ``agree`` turns
-    the local "any lane" flag into the host's decision; tensor parallelism
-    passes one that reduces it over the ranks, so that every rank takes the
-    same number of steps.
+    The loop's test is a flag on the device (``_PcgState``), read by the
+    host, one device-to-host sync a read.  Without a ``plan`` the host
+    reads it before every step below ``max_steps``, where the JAX loop
+    tests, through ``agree``, which turns the flag into the host's
+    decision: tensor parallelism passes one that reduces it over the
+    ranks, so that every rank takes the same steps.  With a ``PcgChunks``
+    plan the steps are gated on the flag, which then also holds
+    ``k < max_steps``, and the host reads it with the step count after a
+    first batch of steps and then after every step; a gated step after the
+    flag went down changes nothing, so x and rel do not depend on the plan.
+    ``pcg_solve.steps`` counts the steps taken, ``pcg_solve.masked_steps``
+    the gated steps that changed nothing and ``pcg_solve.syncs`` the reads,
+    over all calls (exactly under host threads).  A call is the span
+    ``pcg.solve``, each read the span ``pcg.sync``.
     """
+    if per_group and per_lane is not False:
+        raise ValueError("pcg_solve takes per_lane or per_group, not both")
     with span("pcg.solve"):
-        return _pcg_loop(precond, matvec, f, tol, max_steps, agree, per_lane, per_group)
+        s = _PcgState(f, per_lane is not False, per_group, gated=plan is not None)
+        lanes = per_lane if isinstance(per_lane, torch.Tensor) else None
+        _run_loop(
+            partial(_pcg_setup, precond, matvec, f, tol, s, lanes),
+            partial(_pcg_advance, precond, matvec, s),
+            s, max_steps, plan, agree,
+        )
+        return s.x, s.rel()
 
 
 def _above(r, thresh, per_group):
@@ -220,8 +237,7 @@ def _above(r, thresh, per_group):
 
 
 def _pcg_step(precond, matvec, x, r, p, rz):
-    """One flexible PCG step from (x, r, p, rz): the body of the eager loop
-    and of the chunked one."""
+    """One flexible PCG step from (x, r, p, rz)."""
     Ap = matvec(p)
     pAp = torch.sum(p * Ap, dim=-1, keepdim=True)
     ok = pAp > 0.0
@@ -238,48 +254,161 @@ def _pcg_step(precond, matvec, x, r, p, rz):
     return x_new, r_new, p_new, rz_new
 
 
-def _pcg_loop(precond, matvec, f, tol, max_steps, agree, per_lane, per_group):
+class PcgChunks:
+    """How the PCG calls of one solve batch their first read of the flag.
+
+    On a card a call runs, before its first read, as many gated steps as
+    the previous call of the solve took real steps (at least one), and then
+    one step a read: there a read costs a sync (about 25 us on an H100) and
+    a masked step its device time (about 130 us at scp4x class).  Off a
+    card a read costs no more than a tensor's copy and a masked step a whole
+    step, so one step runs before the first read.  A solve makes one plan
+    and passes it to each of its calls in turn.
+
+    After the first batch every step is read: on 64-lane scp4x-class node
+    windows on an H100, a read every four steps masked 8.1% of the steps
+    and a read every eight 20.8%, against 0.04% with a read a step."""
+
+    def __init__(self):
+        self.last = 0
+
+    def first(self, device: torch.device) -> int:
+        """Gated steps to run before a call's first read, on ``device``."""
+        return max(1, self.last) if device.type == "cuda" else 1
+
+
+class _PcgState:
+    """The loop's state: the iterate (x, r, p, rz), the norms of f and the
+    thresholds, the mask ``active`` of the lanes ([..., 1], per lane) or
+    groups ([G, 1, 1], per group) still stepping (None batch-wide), and the
+    flag ``go``, the loop's test for the next step.  Ungated, the set-up and
+    the steps bind new tensors.  Gated, they write preallocated ones in
+    place, so that CUDA graphs can replay them, and the state also holds
+    the step count ``k``, its cap ``kmax`` and ``flags`` = (k, go), which
+    the host reads."""
+
+    def __init__(self, f: torch.Tensor, per_lane: bool, per_group: bool, gated: bool):
+        self.per_lane, self.per_group, self.gated = per_lane, per_group, gated
+        if not gated:
+            return
+        lead = f.shape[:-1]
+        self.x, self.r, self.p = (torch.empty_like(f) for _ in range(3))
+        self.rz, self.norm_f, self.thresh = (f.new_empty(lead + (1,)) for _ in range(3))
+        scalar = dict(device=f.device, dtype=torch.int64)
+        self.k, self.kmax = torch.zeros((), **scalar), torch.zeros((), **scalar)
+        self.go = torch.zeros((), dtype=torch.bool, device=f.device)
+        self.flags = torch.zeros(2, **scalar)
+        self.active = None
+        if per_lane or per_group:
+            shape = lead[:-1] + (1, 1) if per_group else lead + (1,)
+            self.active = torch.zeros(shape, dtype=torch.bool, device=f.device)
+
+    def test(self):
+        """go = any lane above its threshold (any lane or group still
+        active); gated, also k < kmax, and (k, go) into ``flags``."""
+        if self.active is None:
+            hi = _above(self.r, self.thresh, False).any()
+        else:
+            hi = self.active.any()
+        if not self.gated:
+            self.go = hi
+            return
+        torch.logical_and(hi, self.k < self.kmax, out=self.go)
+        torch.stack((self.k, self.go.to(torch.int64)), out=self.flags)
+
+    def rel(self):
+        return torch.linalg.vector_norm(self.r, dim=-1) / torch.clamp(self.norm_f[..., 0], min=1e-300)
+
+
+def _pcg_setup(precond, matvec, f, tol, s: _PcgState, lanes=None):
+    """The set-up into ``s``: x = P f, r = f - M x, p = P r, k = 0, the
+    lanes (groups) above their thresholds, per lane only those of ``lanes``
+    where it is given, and the first test."""
     norm_f = torch.linalg.vector_norm(f, dim=-1, keepdim=True)
     thresh = tol * torch.clamp(norm_f, min=1e-300)
-
-    if per_group and per_lane is not False:
-        raise ValueError("pcg_solve takes per_lane or per_group, not both")
-
     x = precond(f)
     r = f - matvec(x)
-    z = precond(r)
-    p = z
-    rz = torch.sum(r * z, dim=-1, keepdim=True)
-
-    if per_lane is False and not per_group:
-        active = None
+    p = precond(r)
+    rz = torch.sum(r * p, dim=-1, keepdim=True)
+    active = None
+    if s.per_lane or s.per_group:
+        active = _above(r, thresh, s.per_group)
+        if lanes is not None:
+            active = active & lanes[..., None]
+    if s.gated:
+        for buf, v in zip((s.norm_f, s.thresh, s.x, s.r, s.p, s.rz), (norm_f, thresh, x, r, p, rz)):
+            buf.copy_(v)
+        if active is not None:
+            s.active.copy_(active)
+        s.k.zero_()
     else:
-        active = _above(r, thresh, per_group)
-        if isinstance(per_lane, torch.Tensor):
-            active = active & per_lane[..., None]
+        s.norm_f, s.thresh, s.x, s.r, s.p, s.rz, s.active = norm_f, thresh, x, r, p, rz, active
+    s.test()
 
-    k = syncs = 0
-    while k < max_steps:
-        with span("pcg.sync"):
-            go = agree((_above(r, thresh, per_group) if active is None else active).any())
-        syncs += 1
-        if not go:
-            break
-        x_new, r_new, p_new, rz_new = _pcg_step(precond, matvec, x, r, p, rz)
-        if active is None:
-            x, r, p, rz = x_new, r_new, p_new, rz_new
-        else:
-            x = torch.where(active, x_new, x)
-            r = torch.where(active, r_new, r)
-            p = torch.where(active, p_new, p)
-            rz = torch.where(active, rz_new, rz)
-            active = active & _above(r, thresh, per_group)
-        k += 1
+
+def _pcg_advance(precond, matvec, s: _PcgState):
+    """One step of the loop and the test for the next.  Ungated, the host
+    asks for it only where the test held: every lane steps, per lane or
+    group only the active ones.  Gated, the step is taken where ``go``
+    holds (and the lane or group is active) and the state stays exactly as
+    it was elsewhere; k counts the steps taken."""
+    old = s.x, s.r, s.p, s.rz
+    new = _pcg_step(precond, matvec, *old)
+    active = s.active
+    if s.gated:
+        sel = s.go if active is None else active & s.go
+        for buf, v in zip(old, new):
+            torch.where(sel, v, buf, out=buf)
+        s.k.add_(s.go)
+    elif active is None:
+        s.x, s.r, s.p, s.rz = new
+    else:
+        s.x, s.r, s.p, s.rz = (torch.where(active, v, o) for v, o in zip(new, old))
+    if active is not None:
+        active.logical_and_(_above(s.r, s.thresh, s.per_group))
+    s.test()
+
+
+def _run_loop(setup, step, s: _PcgState, max_steps: int, plan: PcgChunks | None, agree=bool):
+    """Set up, then run steps and read the test (the span ``pcg.sync``)
+    until the host decides to stop: without a plan before every step below
+    ``max_steps``, through ``agree``; with one (gated steps) ``flags`` after
+    a first batch of ``plan.first`` steps and then after every step.
+    Counts the real steps, the masked ones and the reads, and returns the
+    steps run."""
+    if s.gated:
+        s.kmax.fill_(max_steps)
+    setup()
+    done = reads = 0
+    if plan is None:
+        while done < max_steps:
+            with span("pcg.sync"):
+                go = agree(s.go)
+            reads += 1
+            if not go:
+                break
+            step()
+            done += 1
+        k = done
+    else:
+        n = plan.first(s.x.device)
+        while True:
+            n = min(n, max_steps - done)
+            for _ in range(n):
+                step()
+            done += n
+            with span("pcg.sync"):
+                k, go = s.flags.tolist()
+            reads += 1
+            if not go:
+                break
+            n = 1
+        plan.last = k
     with _count_lock:
         pcg_solve.steps += k
-        pcg_solve.syncs += syncs
-    rel = torch.linalg.vector_norm(r, dim=-1) / torch.clamp(norm_f[..., 0], min=1e-300)
-    return x, rel
+        pcg_solve.syncs += reads
+        pcg_solve.masked_steps += done - k
+    return done
 
 
 pcg_solve.steps = 0
@@ -289,195 +418,57 @@ pcg_solve.graph_captures = 0
 pcg_solve.graph_replays = 0
 
 
-# ---------------------------------------------------------------------------
-# the chunked loop: gated steps, one read of a device flag per chunk
-# ---------------------------------------------------------------------------
+def _identity(v):
+    return v
 
 
-class PcgChunks:
-    """How the chunked PCG calls of one solve read their flag.
-
-    A chunk is ``SIZE`` gated steps.  On a card a call runs, before its
-    first read, as many chunks as the previous call of the solve took real
-    steps, rounded down to whole chunks (at least one), and then one chunk a
-    read: there a read costs a sync (about 25 us on an H100) and a masked
-    step its device time (about 130 us at scp4x class).  Off a card a read
-    costs no more than a tensor's copy and a masked step a whole step, so
-    every chunk is read.  A solve makes one plan and passes it to each of
-    its calls in turn.
-
-    On 64-lane scp4x-class node windows on an H100, one step a chunk masked
-    0.04% of the steps with 2.4 reads a call; four steps 8.1% with 1.4
-    reads, eight steps 20.8% with 1.2."""
-
-    SIZE = 1
-
-    def __init__(self):
-        self.last = 0
-
-    def first(self, device: torch.device) -> int:
-        """Chunks to run before a call's first read, on ``device``."""
-        if device.type != "cuda":
-            return 1
-        return max(1, self.last // self.SIZE)
-
-
-class _PcgState:
-    """The chunked loop's state, in tensors that the set-up and the steps
-    write in place: the iterate (x, r, p, rz), the thresholds, the step
-    count ``k`` and its cap ``kmax``, the flag ``go`` (the loop's test for
-    the next step), per group the mask ``active``, and ``flags`` = (k, go),
-    which the host reads."""
-
-    def __init__(self, f: torch.Tensor, per_group: bool):
-        lead = f.shape[:-1]
-        self.x, self.r, self.p = (torch.empty_like(f) for _ in range(3))
-        self.rz, self.norm_f, self.thresh = (f.new_empty(lead + (1,)) for _ in range(3))
-        scalar = dict(device=f.device, dtype=torch.int64)
-        self.k, self.kmax = torch.zeros((), **scalar), torch.zeros((), **scalar)
-        self.go = torch.zeros((), dtype=torch.bool, device=f.device)
-        self.flags = torch.zeros(2, **scalar)
-        self.active = (
-            torch.zeros(lead[:-1] + (1, 1), dtype=torch.bool, device=f.device) if per_group else None
-        )
-
-    def test(self):
-        """go = (any lane, or per group any active group, above its
-        threshold) and k < kmax."""
-        if self.active is None:
-            hi = _above(self.r, self.thresh, False).any()
-        else:
-            hi = self.active.any()
-        torch.logical_and(hi, self.k < self.kmax, out=self.go)
-
-    def write_flags(self):
-        torch.stack((self.k, self.go.to(torch.int64)), out=self.flags)
-
-    def rel(self):
-        return torch.linalg.vector_norm(self.r, dim=-1) / torch.clamp(self.norm_f[..., 0], min=1e-300)
-
-
-def _chunked_setup(precond, matvec, f, tol, s: _PcgState):
-    """The eager loop's set-up, into ``s``, with k = 0 and the first test."""
-    norm_f = torch.linalg.vector_norm(f, dim=-1, keepdim=True)
-    s.norm_f.copy_(norm_f)
-    s.thresh.copy_(tol * torch.clamp(norm_f, min=1e-300))
-    x = precond(f)
-    r = f - matvec(x)
-    z = precond(r)
-    s.x.copy_(x)
-    s.r.copy_(r)
-    s.p.copy_(z)
-    s.rz.copy_(torch.sum(r * z, dim=-1, keepdim=True))
-    s.k.zero_()
-    if s.active is not None:
-        s.active.copy_(_above(r, s.thresh, True))
-    s.test()
-    s.write_flags()
-
-
-def _chunk(precond, matvec, s: _PcgState, size: int):
-    """``size`` gated steps: each takes the step where ``go`` holds (per
-    group, where the group is active too) and keeps the state exactly as it
-    was elsewhere; k counts the steps taken.  Ends by writing ``flags``."""
-    for _ in range(size):
-        new = _pcg_step(precond, matvec, s.x, s.r, s.p, s.rz)
-        sel = s.go if s.active is None else s.active & s.go
-        for buf, v in zip((s.x, s.r, s.p, s.rz), new):
-            torch.where(sel, v, buf, out=buf)
-        s.k.add_(s.go)
-        if s.active is not None:
-            s.active.logical_and_(_above(s.r, s.thresh, True))
-        s.test()
-    s.write_flags()
-
-
-def _run_chunks(setup, chunk, s: _PcgState, size: int, max_steps: int, plan: PcgChunks):
-    """Set up, then run chunks and read ``flags`` after each batch of them
-    (the span ``pcg.sync``) until the flag is down; count the real steps,
-    the masked ones and the reads, and return the chunks run.  A step after
-    the flag went down changes nothing, and once down the flag stays down,
-    so a batch never runs past ``max_steps`` rounded up to a whole chunk."""
-    setup()
-    n = plan.first(s.x.device)
-    done = chunks = reads = 0
-    while True:
-        n = min(n, -(-(max_steps - done) // size))
-        for _ in range(n):
-            chunk()
-        chunks += n
-        done += n * size
-        with span("pcg.sync"):
-            k, go = s.flags.tolist()
-        reads += 1
-        if not go:
-            break
-        n = 1
-    plan.last = k
-    with _count_lock:
-        pcg_solve.steps += k
-        pcg_solve.syncs += reads
-        pcg_solve.masked_steps += done - k
-    return chunks
-
-
-def pcg_chunked(precond, matvec, f, tol, max_steps: int, plan: PcgChunks, per_group: bool = False):
-    """``pcg_solve``'s batch-wide loop (per group with ``per_group``), run
-    eagerly in chunks of ``plan.SIZE`` gated steps with one read of a
-    device flag per batch of chunks (``PcgChunks``) instead of one test per
-    step.  x and rel are bit for bit ``pcg_solve``'s, after the same
-    number of real steps; ``pcg_solve.steps`` counts those,
-    ``pcg_solve.masked_steps`` the gated steps that changed nothing, and
-    ``pcg_solve.syncs`` the reads.  A call is the span ``pcg.solve``."""
-    with span("pcg.solve"):
-        s = _PcgState(f, per_group)
-        s.kmax.fill_(max_steps)
-        _run_chunks(
-            lambda: _chunked_setup(precond, matvec, f, tol, s),
-            lambda: _chunk(precond, matvec, s, plan.SIZE),
-            s, plan.SIZE, max_steps, plan,
-        )
-        return s.x, s.rel()
-
-
-def _normal_ops(Linv, dinv, A, d, row_pad):
+def _normal_ops(Linv, dinv, A, d, row_pad, psum=_identity):
     """(precond, matvec) of the shared IPM's Newton system: P r = Dg L^-T
-    L^-1 Dg r with the factor (Linv, dinv), and v -> A (d * (A^T v)) +
-    row_pad * v."""
+    L^-1 Dg r with the factor (Linv, dinv), and v -> psum(A (d * (A^T v)))
+    + row_pad * v."""
     fac = NormalEqFactor(Linv=Linv, dinv=dinv)
     Av, ATu, _ = products(A)
-    return (lambda r: _apply_normal_precond(fac, r)), (lambda v: Av(d * ATu(v)) + row_pad * v)
+    return (lambda r: _apply_normal_precond(fac, r)), (lambda v: psum(Av(d * ATu(v))) + row_pad * v)
 
 
-def normal_pcg(Linv, dinv, A, d, row_pad, f, tol: float, max_steps: int, plan: PcgChunks,
-               per_group: bool = False):
-    """Solve (A diag(d) A^T + diag(row_pad)) x = f by ``pcg_chunked``,
+def normal_pcg(Linv, dinv, A, d, row_pad, f, tol: float, max_steps: int,
+               plan: PcgChunks | None = None, per_group: bool = False,
+               psum=_identity, agree=bool):
+    """Solve (A diag(d) A^T + diag(row_pad)) x = f by ``pcg_solve``,
     preconditioned by the factor (Linv, dinv): the shared IPM's Newton
-    solve on one device.  A is a dense [m, n] (grouped [G, m, n]) tensor or
-    an EllMatrix; d [..., n], row_pad [1, m] (grouped [G, 1, m]), f [..., m].
+    solve.  A is a dense [m, n] (grouped [G, m, n]) tensor or an EllMatrix;
+    d [..., n], row_pad [1, m] (grouped [G, 1, m]), f [..., m].  Under
+    tensor parallelism ``psum`` sums the rank's product over the ranks and
+    ``agree`` the loop's decision, as in ``pcg_solve``.
 
-    On a CUDA device the set-up and the chunk run as two CUDA graphs
-    (``_PcgGraphs``), each replay counted in ``pcg_solve.graph_replays``;
-    elsewhere the same loop runs eagerly.  Returns (x, rel) as
-    ``pcg_solve`` does."""
-    if f.device.type != "cuda":
-        precond, matvec = _normal_ops(Linv, dinv, A, d, row_pad)
-        return pcg_chunked(precond, matvec, f, tol, max_steps, plan, per_group)
+    With a ``plan`` (one device, no reducers) and f on a CUDA device
+    (``_graphed``), the set-up and the gated step run as two CUDA graphs
+    per key, each replay counted in ``pcg_solve.graph_replays``; elsewhere
+    the same loop runs eagerly.  Returns (x, rel) as ``pcg_solve`` does."""
+    if not _graphed(plan is not None, f):
+        precond, matvec = _normal_ops(Linv, dinv, A, d, row_pad, psum)
+        return pcg_solve(precond, matvec, f, tol, max_steps, agree, per_group=per_group, plan=plan)
     with span("pcg.solve"):
         return _graphed_pcg((Linv, dinv, A, d, row_pad, f), tol, max_steps, plan, per_group)
 
 
 # ---------------------------------------------------------------------------
-# CUDA graphs of the chunked loop and of the factor
+# CUDA graphs of the PCG and of the factor
 # ---------------------------------------------------------------------------
 
 GRAPH_KEYS = 24  # keys each graph cache holds; the least recently used goes
-_graphs: "OrderedDict[tuple, _PcgGraphs]" = OrderedDict()
-_factor_graphs: "OrderedDict[tuple, _FactorGraph]" = OrderedDict()
+_pcg_graphs: "OrderedDict[tuple, _Graphs]" = OrderedDict()
+_factor_graphs: "OrderedDict[tuple, _Graphs]" = OrderedDict()
 _graphs_lock = threading.Lock()
 # one capture at a time in the process: each synchronises the device and
 # empties the allocator's cache as it begins
 _capture_lock = threading.Lock()
+
+
+def _graphed(allowed: bool, t: torch.Tensor) -> bool:
+    """Whether a call replays CUDA graphs: its caller allows them and ``t``
+    is on a CUDA device."""
+    return allowed and t.device.type == "cuda"
 
 
 def _cached(cache: OrderedDict, key, make):
@@ -517,6 +508,28 @@ def _capture(fns, device: torch.device):
         return graphs, outs
 
 
+class _Graphs:
+    """The CUDA graphs of one key: static copies of the key's input tensors
+    (``load``); the graphs of the callables that ``capture`` records over
+    them, in one private memory pool, and what each captured call returned;
+    ``state``, what those callables keep between replays besides the
+    inputs; and ``lock``, which serialises the key's calls from the copy-in
+    to the copy-out, in the order of the device's current stream."""
+
+    def __init__(self, tensors, state=None):
+        self.inputs = [torch.empty(t.shape, dtype=t.dtype, device=t.device) for t in tensors]
+        self.state = state
+        self.graphs = self.outs = None
+        self.lock = threading.Lock()
+
+    def load(self, tensors):
+        for buf, t in zip(self.inputs, tensors):
+            buf.copy_(t)
+
+    def capture(self, fns):
+        self.graphs, self.outs = _capture(fns, self.inputs[0].device)
+
+
 def _flat(inputs):
     """The tensors of ``normal_pcg``'s inputs (an EllMatrix gives four)."""
     Linv, dinv, A, d, row_pad, f = inputs
@@ -530,101 +543,54 @@ def _unflat(ts, ell: bool):
     return Linv, dinv, A, d, row_pad, f
 
 
-class _PcgGraphs:
-    """The CUDA graphs of ``normal_pcg`` for one key: static copies of its
-    inputs, the loop's state, and two graphs in one private memory pool, the
-    set-up and a chunk of ``PcgChunks.SIZE`` steps, which read and write
-    only those.  ``lock`` serialises the calls of the key, which run in
-    the order of the device's current stream."""
-
-    def __init__(self, inputs, per_group: bool):
-        self.ell = isinstance(inputs[2], EllMatrix)
-        self.bufs = [torch.empty_like(t) for t in _flat(inputs)]
-        f = inputs[-1]
-        self.tol = torch.empty((), dtype=f.dtype, device=f.device)
-        self.state = _PcgState(f, per_group)
-        self.graphs = None
-        self.lock = threading.Lock()
-
-    def load(self, inputs, tol: float, max_steps: int):
-        for buf, t in zip(self.bufs, _flat(inputs)):
-            buf.copy_(t)
-        self.tol.fill_(tol)
-        self.state.kmax.fill_(max_steps)
-
-    def capture(self, size: int):
-        """Capture the set-up and the chunk from the loaded inputs."""
-        Linv, dinv, A, d, row_pad, f = _unflat(self.bufs, self.ell)
-        precond, matvec = _normal_ops(Linv, dinv, A, d, row_pad)
-        s = self.state
-        self.graphs, _ = _capture(
-            (lambda: _chunked_setup(precond, matvec, f, self.tol, s),
-             lambda: _chunk(precond, matvec, s, size)),
-            f.device,
-        )
-
-
 def _graphed_pcg(inputs, tol: float, max_steps: int, plan: PcgChunks, per_group: bool):
-    size = plan.SIZE
-    key = (
-        inputs[-1].device, isinstance(inputs[2], EllMatrix), per_group, size,
-        tuple((tuple(t.shape), t.dtype) for t in _flat(inputs)),
-    )
-    g = _cached(_graphs, key, lambda: _PcgGraphs(inputs, per_group))
+    """``normal_pcg`` replayed from its key's two graphs, the set-up and the
+    gated step, over static copies of its inputs; the key's state is the
+    loop's state and the tolerance.  The span ``pcg.capture`` holds a key's
+    first capture."""
+    tensors, f = _flat(inputs), inputs[-1]
+    ell = isinstance(inputs[2], EllMatrix)
+    key = (f.device, ell, per_group, tuple((tuple(t.shape), t.dtype) for t in tensors))
+    g = _cached(_pcg_graphs, key,
+                lambda: _Graphs(tensors, (_PcgState(f, False, per_group, True), f.new_empty(()))))
+    s, tol_t = g.state
     with g.lock:
-        g.load(inputs, tol, max_steps)
+        g.load(tensors)
+        tol_t.fill_(tol)
         if g.graphs is None:
             with span("pcg.capture"):
-                g.capture(size)
+                Linv, dinv, A, d, row_pad, f_in = _unflat(g.inputs, ell)
+                precond, matvec = _normal_ops(Linv, dinv, A, d, row_pad)
+                g.capture((lambda: _pcg_setup(precond, matvec, f_in, tol_t, s),
+                           lambda: _pcg_advance(precond, matvec, s)))
             with _count_lock:
                 pcg_solve.graph_captures += 2
-        setup, chunk = g.graphs
-        chunks = _run_chunks(setup.replay, chunk.replay, g.state, size, max_steps, plan)
-        x, rel = g.state.x.clone(), g.state.rel()
+        setup, step = g.graphs
+        steps = _run_loop(setup.replay, step.replay, s, max_steps, plan)
+        x, rel = s.x.clone(), s.rel()
     with _count_lock:
-        pcg_solve.graph_replays += 1 + chunks
+        pcg_solve.graph_replays += 1 + steps
     return x, rel
 
 
-class _FactorGraph:
-    """The CUDA graph of ``factor_gram``'s chain for one key: static copies
-    of M and row_reg, and one graph in a private memory pool that reads
-    them and writes the static (Linv, dinv).  ``lock`` serialises the calls
-    of the key from the copy-in to the copy-out."""
-
-    def __init__(self, M: torch.Tensor, row_reg: torch.Tensor):
-        self.M = torch.empty(M.shape, dtype=M.dtype, device=M.device)
-        self.row_reg = torch.empty(row_reg.shape, dtype=row_reg.dtype, device=row_reg.device)
-        self.graph = self.out = None
-        self.lock = threading.Lock()
-
-    def load(self, M: torch.Tensor, row_reg: torch.Tensor):
-        self.M.copy_(M)
-        self.row_reg.copy_(row_reg)
-
-    def capture(self, ridge: float, leaf_size: int):
-        (self.graph,), (self.out,) = _capture(
-            (lambda: _factor_chain(self.M, self.row_reg, ridge, leaf_size),), self.M.device
-        )
-
-
 def _graphed_factor(M, row_reg, ridge: float, leaf_size: int):
-    """``factor_gram`` replayed from its key's graph: the span
-    ``factor.capture`` holds a key's first capture, ``factor.replay`` the
-    copy-in, the replay and the copy-out of (Linv, dinv)."""
+    """``factor_gram`` replayed from its key's graph over static copies of M
+    and row_reg: the span ``factor.capture`` holds a key's first capture,
+    ``factor.replay`` the copy-in, the replay and the copy-out of (Linv,
+    dinv)."""
     key = (M.device, M.dtype, tuple(M.shape), row_reg.dtype, tuple(row_reg.shape), leaf_size, ridge)
-    g = _cached(_factor_graphs, key, lambda: _FactorGraph(M, row_reg))
+    g = _cached(_factor_graphs, key, lambda: _Graphs((M, row_reg)))
     with g.lock:
-        if g.graph is None:
+        if g.graphs is None:
             with span("factor.capture"):
-                g.load(M, row_reg)
-                g.capture(ridge, leaf_size)
+                g.load((M, row_reg))
+                g.capture((lambda: _factor_chain(*g.inputs, ridge, leaf_size),))
             with _count_lock:
                 factor_gram.graph_captures += 1
         with span("factor.replay"):
-            g.load(M, row_reg)
-            g.graph.replay()
-            Linv, dinv = (t.clone() for t in g.out)
+            g.load((M, row_reg))
+            g.graphs[0].replay()
+            Linv, dinv = (t.clone() for t in g.outs[0])
     with _count_lock:
         factor_gram.graph_replays += 1
     return Linv, dinv

@@ -315,8 +315,8 @@ def span_summary(log: Optional[list] = None, first: int = 0) -> dict:
 
 
 def counters() -> dict:
-    """Every counter of the port, by dotted name: PCG steps and loop tests,
-    the chunked PCG's masked steps and its CUDA graphs captured and replayed,
+    """Every counter of the port, by dotted name: PCG steps, reads of its
+    flag and masked steps, and its CUDA graphs captured and replayed,
     the factor's calls and its CUDA graphs captured and replayed, the IPMs'
     iterations and syncs, the shared IPM's solves by operator,
     K1's launches by path, the B&B's node windows, the ELL operator cache,

@@ -11,10 +11,9 @@ from sypha_tpu.ops import linalg as jlinalg
 from sypha_tpu.ops import spd as jspd
 from sypha_tpu.ops.pallas_gram import batched_gram
 from sypha_tpu.ipm import shared as jshared
-from sypha_tpu_torch.ipm import shared as tshared
 from sypha_tpu_torch.ops import gram as tgram
 from sypha_tpu_torch.ops.linalg import block_chol_inverse
-from sypha_tpu_torch.ops.spd import pcg_solve
+from sypha_tpu_torch.ops.spd import NormalEqFactor, _apply_normal_precond, pcg_solve
 from sypha_tpu_torch.io.scp_reader import parse_scp_text
 from sypha_tpu_torch.io.standard_form import pad_lp
 from sypha_tpu_torch.testing import synthetic_scp
@@ -136,7 +135,7 @@ def test_pcg_solve_f64_with_f32_preconditioner_matches_jax():
     Lt, dt, Mt = torch.from_numpy(Linv), torch.from_numpy(dinv), torch.from_numpy(M)
     steps = pcg_solve.steps
     tx, trel = pcg_solve(
-        lambda r: tshared._precond(Lt, dt, r),
+        lambda r: _apply_normal_precond(NormalEqFactor(Linv=Lt, dinv=dt), r),
         lambda v: torch.einsum("bij,bj->bi", Mt, v),
         torch.from_numpy(f), 1e-12, 16,
     )

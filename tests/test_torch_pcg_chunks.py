@@ -1,13 +1,18 @@
-"""The PCG in chunks (ops.spd.pcg_chunked, normal_pcg): gated steps with one
-read of a device flag per chunk give the eager ``pcg_solve``'s x and rel bit
-for bit after the same number of real steps, in the batch-wide and the
-per-group loop, at chunk sizes 1, 3 and 8, wherever the loop stops: inside a
-chunk, on a chunk's last step, at entry, or cut by ``max_steps``; the
-counters of real and masked steps and of reads are exact.  The CUDA graphs
-of ``normal_pcg`` carry the ``cuda`` marker and skip without a card.  Nothing
-here imports JAX, so the file also runs on a machine without it:
+"""The PCG's one loop (ops.spd.pcg_solve, normal_pcg): its test is a flag
+that stays on the device, read by the host before every step or, with a
+``PcgChunks`` plan that gates the steps on it, after a first batch of
+steps.  On the CPU each loop
+semantics (batch-wide, per lane, a subset of lanes, per group) is held to
+the JAX package's ``pcg_solve`` (through ``jax.vmap`` per lane and per
+group) wherever the loop stops: inside, at entry, or cut by ``max_steps``;
+a plan gives the answer without one bit for bit, and the counters of real
+and masked steps and of reads are exact.  An ``agree`` that overrules a
+rank's flag steps the rank as the ranks decided.  The CUDA graphs of
+``normal_pcg`` carry the ``cuda`` marker, skip without a card, and need no
+JAX:
 
-    python -m pytest --noconftest tests/test_torch_pcg_chunks.py -q
+    python -m pytest tests/test_torch_pcg_chunks.py -q
+    python -m pytest --noconftest -m cuda tests/test_torch_pcg_chunks.py -q   # on a card
 """
 
 import numpy as np
@@ -24,6 +29,8 @@ from sypha_tpu_torch.ops.ell import products
 from sypha_tpu_torch.testing import synthetic_scp
 
 COUNTERS = ("steps", "syncs", "masked_steps", "graph_captures", "graph_replays")
+K, CAP = 5, 7  # the loop's steps when it stops inside, and the cut's max_steps
+SUBSET = torch.tensor([True, False, True, True, False, True])  # the lanes to solve
 
 
 def _counts():
@@ -35,93 +42,159 @@ def _delta(c0):
 
 
 def _system(per_group):
-    """A Jacobi-preconditioned SPD system: 6 lanes, or 3 groups of 2."""
+    """A Jacobi-preconditioned SPD system as numpy (M, diag, f): 6 lanes of
+    48 rows, or 3 groups of 2."""
     rng = np.random.default_rng(7)
     B, m = 6, 48  # PCG's residual falls at every one of its first 20 steps
     G = rng.standard_normal((B, m, 2 * m))
     scale = 10.0 ** rng.uniform(-2, 2, (B, m))
     M = scale[:, :, None] * (G @ G.transpose(0, 2, 1) + m * np.eye(m)) * scale[:, None, :]
     f = rng.standard_normal((B, m))
-    M, f = torch.from_numpy(M), torch.from_numpy(f)
-    diag = torch.diagonal(M, dim1=-2, dim2=-1)
+    diag = np.diagonal(M, axis1=1, axis2=2).copy()
     if per_group:
         M, f, diag = M.reshape(3, 2, m, m), f.reshape(3, 2, m), diag.reshape(3, 2, m)
-    return (lambda r: r / diag), (lambda v: torch.einsum("...ij,...j->...i", M, v)), f
+    return M, diag, f
 
 
-def _tol_for(precond, matvec, f, K, per_group):
-    """The tolerance at which the loop stops after exactly K steps (per
-    group, group g after K - g steps): the residual norms of K gated steps
-    with every lane stepping, the threshold just above the largest norm at
-    step K, and a check that some lane (of the group) is above it before."""
-    s = tspd._PcgState(f, False)
-    s.kmax.fill_(K)
-    tspd._chunked_setup(precond, matvec, f, 0.0, s)
-    norm_f = torch.linalg.vector_norm(f, dim=-1)
-    rels = [torch.linalg.vector_norm(s.r, dim=-1) / norm_f]
-    for _ in range(K):
-        tspd._chunk(precond, matvec, s, 1)
-        rels.append(torch.linalg.vector_norm(s.r, dim=-1) / norm_f)
-    rels = torch.stack(rels)  # [K + 1, lanes...]
-    if not per_group:
+def _ops(M, diag):
+    tM, tdiag = torch.from_numpy(M), torch.from_numpy(diag)
+    return (lambda r: r / tdiag), (lambda v: torch.einsum("...ij,...j->...i", tM, v))
+
+
+def _stops(kind):
+    """Each lane's (per group, each group's) steps when the loop stops
+    inside: K for the first, one fewer for each next, none for the last
+    lanes."""
+    n = 3 if kind == "group" else 6
+    return [max(K - i, 0) for i in range(n)]
+
+
+def _tol_inside(kind, precond, matvec, f):
+    """The tolerance at which the loop stops inside after K steps, each lane
+    (group) after its own ``_stops`` where it stops on its own: the residual
+    norms of k steps of every lane at tol 0, each threshold just above the
+    largest norm of the lane (group, batch) at its stop, and a check that it
+    is below every norm before."""
+    per_group = kind == "group"
+    rels = torch.stack([tspd.pcg_solve(precond, matvec, f, 0.0, k, per_group=per_group)[1]
+                        for k in range(K + 1)])  # [K + 1, lanes...]
+    if kind == "batch":
         worst = rels.reshape(K + 1, -1).amax(dim=1)
-        tol = float(worst[K]) * (1 + 1e-9)
-        assert bool((worst[:K] > tol * (1 + 1e-6)).all())
-        return tol
-    worst = rels.amax(dim=-1)  # [K + 1, G]
-    ks = [max(K - g, 0) for g in range(worst.shape[1])]
-    tol = torch.tensor([float(worst[k, g]) * (1 + 1e-9) for g, k in enumerate(ks)], dtype=f.dtype)
-    for g, k in enumerate(ks):
-        assert bool((worst[:k, g] > tol[g] * (1 + 1e-6)).all())
-    return tol[:, None, None].expand(f.shape[:-1] + (1,)).contiguous()
+        assert bool((worst[:K] > worst[K] * (1 + 1e-6)).all())
+        return float(worst[K]) * (1 + 1e-9)
+    worst = rels.amax(dim=-1) if per_group else rels  # [K + 1, groups or lanes]
+    tol = torch.empty(worst.shape[1], dtype=f.dtype)
+    for i, k in enumerate(_stops(kind)):
+        assert bool((worst[:k, i] > worst[k, i] * (1 + 1e-6)).all())
+        tol[i] = worst[k, i] * (1 + 1e-9)
+    if per_group:
+        return tol[:, None, None].expand(f.shape[:-1] + (1,)).contiguous()
+    return tol[:, None]
 
 
-@pytest.mark.parametrize("per_group", [False, True], ids=["batch", "group"])
-@pytest.mark.parametrize("size", [1, 3, 8])
-@pytest.mark.parametrize("stop", ["mid_chunk", "chunk_end", "at_entry", "max_steps"])
-def test_chunked_loop_is_the_eager_loop_bit_for_bit(per_group, size, stop):
-    precond, matvec, f = _system(per_group)
-    max_steps = 40
-    if stop == "mid_chunk":
-        K = 2 * size + 1
-    elif stop == "chunk_end":
-        K = 2 * size
-    elif stop == "at_entry":
-        K = 0
+def _jax_pcg(kind, M, diag, f, tol, max_steps):
+    """The JAX package's loop on the same system: batched, or through
+    ``jax.vmap`` over lanes (lanes outside the subset at an infinite
+    tolerance, so that they never step) or over groups."""
+    import jax
+    import jax.numpy as jnp
+
+    from sypha_tpu.ops import spd as jspd
+
+    def one(Mi, di, fi, ti):
+        matvec = lambda v: jnp.einsum("...ij,...j->...i", Mi, v)  # noqa: E731
+        return jspd.pcg_solve(lambda r: r / di, matvec, fi, ti, max_steps)
+
+    tol = np.asarray(tol, dtype=np.float64)
+    if kind == "batch":
+        out = one(jnp.asarray(M), jnp.asarray(diag), jnp.asarray(f), float(tol))
     else:
-        K = max_steps = 2 * size + 1
-    tol = 0.0 if stop == "max_steps" else (1e3 if K == 0 else _tol_for(precond, matvec, f, K, per_group))
+        if kind != "group":
+            tol = np.broadcast_to(tol, f.shape[:-1] + (1,))[..., 0].copy()
+            if kind == "subset":
+                tol[~SUBSET.numpy()] = np.inf
+        else:
+            tol = np.broadcast_to(tol, f.shape[:-1] + (1,)).copy()
+        out = jax.vmap(one)(jnp.asarray(M), jnp.asarray(diag), jnp.asarray(f), jnp.asarray(tol))
+    return tuple(np.asarray(a) for a in out)
+
+
+@pytest.mark.parametrize("kind", ["batch", "lane", "subset", "group"])
+@pytest.mark.parametrize("stop", ["inside", "at_entry", "max_steps"])
+@pytest.mark.parametrize("plan", ["every_step", "first_batch"])
+def test_pcg_loop_matches_jax(kind, stop, plan):
+    M, diag, f_np = _system(kind == "group")
+    precond, matvec = _ops(M, diag)
+    f = torch.from_numpy(f_np)
+    per_lane = {"lane": True, "subset": SUBSET}.get(kind, False)
+    kw = dict(per_lane=per_lane, per_group=kind == "group")
+    max_steps, steps = 40, K
+    if stop == "inside":
+        tol = _tol_inside(kind, precond, matvec, f)
+    elif stop == "at_entry":
+        tol, steps = 1e3, 0
+    else:
+        tol, max_steps = 0.0, CAP
+        steps = CAP
 
     c0 = _counts()
-    ex, erel = tspd.pcg_solve(precond, matvec, f, tol, max_steps, per_group=per_group)
-    eager = _delta(c0)
-    assert eager["steps"] == K
-
-    # one chunk a read (the plan off a card), then a first batch that runs
-    # past the stop, as on a card after a longer call
-    for last in (0, K + 2 * size):
-        plan = tspd.PcgChunks()
-        plan.SIZE = size
-        plan.last = last
-        first = max(1, last // size)
-        plan.first = lambda device: first
+    x, rel = tspd.pcg_solve(precond, matvec, f, tol, max_steps, **kw)
+    # one read before every step below max_steps, as the JAX loop tests
+    reads = steps if stop == "max_steps" else steps + 1
+    assert _delta(c0) == dict(steps=steps, syncs=reads, masked_steps=0,
+                              graph_captures=0, graph_replays=0)
+    if plan == "first_batch":
+        # a first batch that runs past the stop, as on a card after a
+        # longer call, then a read a step: the same answer bit for bit
+        chunks = tspd.PcgChunks()
+        chunks.last = steps + 3
+        chunks.first = lambda device: chunks.last
+        first = min(steps + 3, max_steps)
         c0 = _counts()
-        x, rel = tspd.pcg_chunked(precond, matvec, f, tol, max_steps, plan, per_group)
-        got = _delta(c0)
-        assert torch.equal(x, ex) and torch.equal(rel, erel)
-        cap = -(-max_steps // size)
-        need = max(1, -(-K // size))  # chunks until the flag is down after step K
-        chunks = min(max(first, need), cap)
-        reads = 1 + max(0, chunks - first)
-        assert got == dict(steps=K, syncs=reads, masked_steps=chunks * size - K,
-                           graph_captures=0, graph_replays=0)
-        assert plan.last == K
+        px, prel = tspd.pcg_solve(precond, matvec, f, tol, max_steps, plan=chunks, **kw)
+        assert torch.equal(px, x) and torch.equal(prel, rel)
+        assert _delta(c0) == dict(steps=steps, syncs=1, masked_steps=first - steps,
+                                  graph_captures=0, graph_replays=0)
+        assert chunks.last == steps
+
+    jx, jrel = _jax_pcg(kind, M, diag, f_np, tol, max_steps)
+    np.testing.assert_allclose(x.numpy(), jx, rtol=0, atol=1e-12 * np.abs(jx).max())
+    np.testing.assert_allclose(rel.numpy(), jrel, rtol=1e-6, atol=1e-15)
+    if kind == "subset":  # a lane outside the subset never steps
+        assert torch.equal(x[~SUBSET], precond(f)[~SUBSET])
+
+
+def test_agree_that_overrules_the_flag_steps_as_the_ranks_decided():
+    """Tensor parallelism: where ``agree`` decides to step while the rank's
+    own flag is down (here at every test), the rank steps, exactly as at
+    tol 0, deciding before each of the steps and stopping at ``max_steps``
+    without asking."""
+    M, diag, f_np = _system(False)
+    precond, matvec = _ops(M, diag)
+    f = torch.from_numpy(f_np)
+    want = tspd.pcg_solve(precond, matvec, f, 0.0, CAP)
+    asked = []
+
+    def agree(flag):
+        asked.append(flag)
+        return True
+
+    c0 = _counts()
+    x, rel = tspd.pcg_solve(precond, matvec, f, 1e3, CAP, agree)
+    assert torch.equal(x, want[0]) and torch.equal(rel, want[1])
+    assert [bool(flag) for flag in asked] == [False] * CAP
+    assert _delta(c0) == dict(steps=CAP, syncs=CAP, masked_steps=0, graph_captures=0, graph_replays=0)
 
 
 def test_normal_pcg_is_the_shared_ipms_eager_pcg_on_the_cpu():
-    """``normal_pcg`` on both operators against ``pcg_solve`` with the shared
-    IPM's preconditioner and matvec, bit for bit: it runs the chunked loop
-    eagerly off a card."""
+    """``normal_pcg`` with the shared IPM's plan on both operators: bit for
+    bit ``pcg_solve`` without a plan on the same preconditioner and matvec,
+    and the JAX package's loop on the same factor and the dense A."""
+    import jax.numpy as jnp
+
+    from sypha_tpu.ipm import shared as jshared
+    from sypha_tpu.ops import spd as jspd
+
     model = parse_scp_text(synthetic_scp(30, 120, 0.08, 4), "t4")
     rng = np.random.default_rng(4)
     for batch in (tshared.make_shared_batch_sparse(model, 5, device="cpu"),
@@ -135,6 +208,17 @@ def test_normal_pcg_is_the_shared_ipms_eager_pcg_on_the_cpu():
         got = tspd.normal_pcg(Linv, dinv, batch.A, d, row_pad, f, 1e-10, 48, plan)
         assert k > 0 and plan.last == k
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+        A = jnp.asarray((batch.A.todense(torch.float64) if batch.is_sparse else batch.A).numpy())
+        jd, jrp = jnp.asarray(d.numpy()), jnp.asarray(row_pad.numpy())
+        jx, jrel = jspd.pcg_solve(
+            lambda r: jshared._precond(jnp.asarray(Linv.numpy()), jnp.asarray(dinv.numpy()), r),
+            lambda v: jnp.einsum("ij,bj->bi", A, jd * jnp.einsum("ij,bi->bj", A, v)) + jrp * v,
+            jnp.asarray(f.numpy()), 1e-10, 48,
+        )
+        jx = np.asarray(jx)
+        assert np.abs(got[0].numpy() - jx).max() <= 1e-9 * np.abs(jx).max()
+        assert np.all(got[1].numpy() <= 1e-10) and np.all(np.asarray(jrel) <= 1e-10)
 
 
 def _factored(batch, d, rng):
@@ -278,13 +362,13 @@ def test_graphed_pcg_from_two_threads_on_card(cuda_device):
 @pytest.mark.cuda
 def test_graph_cache_drops_the_least_recently_used_key_on_card(cuda_device, monkeypatch):
     monkeypatch.setattr(tspd, "GRAPH_KEYS", 2)
-    tspd._graphs.clear()
+    tspd._pcg_graphs.clear()
     systems = [_newton_system(cuda_device, "ell", lanes=lanes) for lanes in (8, 16, 32)]
     for A, d, rp, L, di, f, _ in systems + systems[:1]:
         c0 = _counts()
         tspd.normal_pcg(L, di, A, d, rp, f, 1e-10, 48, tspd.PcgChunks())
         assert _delta(c0)["graph_captures"] == 2  # the first key was dropped
-        assert len(tspd._graphs) <= 2
+        assert len(tspd._pcg_graphs) <= 2
 
 
 @pytest.mark.cuda
@@ -299,7 +383,7 @@ def test_graphed_node_window_matches_eager_on_card(cuda_device, sparse, monkeypa
     graphed = tnode.solve_node_batch(lp, fix0, fix1, opts)
     assert _delta(c0)["graph_replays"] > 0
 
-    def eager(Linv, dinv, A, d, row_pad, f, tol, max_steps, plan, per_group=False):
+    def eager(Linv, dinv, A, d, row_pad, f, tol, max_steps, plan, per_group, psum, agree):
         return _eager(Linv, dinv, A, d, row_pad, f, max_steps, tol, per_group)
 
     monkeypatch.setattr(tshared, "normal_pcg", eager)
